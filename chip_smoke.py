@@ -1,0 +1,382 @@
+"""Drive the PyTorch/H100 port (`jepsen_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each asserting; any failure exits non-zero:
+  0. environment: the card's name and power limit (no card: exit 2);
+  1. build the hand-written CUDA kernels from `jepsen_tpu_torch/csrc/`;
+  2. each kernel against its plain PyTorch version on the card, bit for
+     bit, at the main path's shapes, with its time, the plain version's,
+     the bound, and the one-call library yardstick where there is one;
+  3. the main path at full width: the bench's 1M-txn list-append history
+     through `pad_packed` and `core_check` (one warm-up, three timed runs),
+     valid verdict bits, 12 forward-fill launches per check;
+  4. the same history with 64 seeded stale reads through
+     `core_check_exact`: G-single cycles in projections 2-4, converged,
+     the segmented-OR kernel launched;
+  5. card == CPU on every `infer` array and on `core_check_exact` for a
+     65,536-txn stale-read history.
+The launch counters are set to 0 just before phase 3 and read just after
+phase 4.  The second-to-last line is a JSON object with one entry per
+kernel; the last line is `{"ok": true, "device": {...}}`.  Longer output
+(the profiler's tables) goes to `chiprun_out/`.
+
+Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+
+N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
+N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
+N_STALE = 64
+N_SMALL = 65_536
+MOP_APPEND, MOP_READ = 0, 1  # jepsen_tpu_torch.history.soa's
+
+# Published device-memory rates (NVIDIA data sheets), bytes/s, and the
+# int32 rate outside the tensor cores (half the 67 TFLOP/s float32 rate:
+# Hopper has 64 INT32 lanes per SM against 128 FP32 lanes).
+MEM_RATE = {"H100 PCIe": 2.0e12, "H100": 3.35e12}
+INT32_RATE = 33.5e12
+
+
+def stale_reads(p, n_reads: int = N_STALE, seed: int = 0):
+    """A copy of PackedTxns `p` in which `n_reads` seeded reads miss their
+    last element: each becomes a stale read, whose reader then
+    anti-depends (rw) on a writer that committed before it — a backward
+    edge, and a G-single cycle where the writer reaches the reader.
+    Candidates are reads with at least one element and no earlier append
+    to their key in their own txn, so that no read misses its own write
+    (an `internal` anomaly besides the cycles)."""
+    rng = np.random.default_rng(seed)
+    m = len(p.mop_txn)
+    order = np.lexsort((np.arange(m), p.mop_key, p.mop_txn))
+    t, k = p.mop_txn[order], p.mop_key[order]
+    app = (p.mop_kind[order] == MOP_APPEND).astype(np.int64)
+    run_start = np.r_[True, (t[1:] != t[:-1]) | (k[1:] != k[:-1])]
+    before = np.cumsum(app) - app                  # appends before, global
+    before -= before[run_start][np.cumsum(run_start) - 1]  # ... in the run
+    own_append_before = np.empty(m, bool)
+    own_append_before[order] = before > 0
+    cand = np.nonzero((p.mop_kind == MOP_READ) & (p.mop_rd_len >= 1)
+                      & ~own_append_before)[0]
+    pick = rng.choice(cand, size=min(n_reads, len(cand)), replace=False)
+    q = dataclasses.replace(p, mop_rd_len=p.mop_rd_len.copy())
+    q.mop_rd_len[pick] -= 1
+    return q
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, reps: int = 15) -> float:
+    """Median device time of `fn()` over `reps` launches (CUDA events),
+    after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def wall_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mem_rate(name: str) -> float:
+    for key, rate in MEM_RATE.items():
+        if key in name:
+            return rate
+    raise SystemExit(f"no published memory rate for {name!r}")
+
+
+def bound(n_bytes: int, n_ops: int, rate: float) -> tuple[float, str]:
+    t_bytes = n_bytes / rate * 1e3
+    t_ops = n_ops / INT32_RATE * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    # ---- 0. environment ---------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script "
+              "drives the port on a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from jepsen_tpu_torch.checkers.elle import device_core, device_infer
+    from jepsen_tpu_torch.ops import fill, kernels, scan
+    from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"[0] device: {name}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; count {torch.cuda.device_count()}")
+    log(smi)
+    rate = mem_rate(name)
+
+    # ---- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    so = kernels.build()
+    kernels.lib()
+    log(f"[1] built {os.path.basename(so)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- 2. kernels vs plain, bit for bit, at the main path's shapes ------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"locf": 0, "seg_or": 0}
+
+    def same(kname, case, got, want):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+            if got.numel() else 0
+        errs[kname] = max(errs[kname], err)
+        assert err == 0 and torch.equal(got, want), (kname, case, err)
+        log(f"[2] {kname} {case}: equal")
+
+    def holes(n, density, monotone=False):
+        keep = torch.rand(n, device=dev, generator=gen) < density
+        vals = torch.randint(0, 1 << 30, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        if monotone:
+            vals = torch.sort(vals).values
+        return torch.where(keep, vals, -1).to(torch.int32)
+
+    n_fill = 1 << 24        # R at 1M txns: 9 of the 12 fills per check
+    chunk = 4096            # locf.cu's CHUNK
+    locf_cases = {
+        "random holes": holes(n_fill, 0.3),
+        "monotone seeds": holes(n_fill, 0.05, monotone=True),
+        "all holes": torch.full((n_fill,), -1, dtype=torch.int32,
+                                device=dev),
+        "no holes": holes(n_fill, 1.0),
+        "value at each chunk boundary": torch.where(
+            torch.arange(n_fill, device=dev) % chunk == 0,
+            torch.arange(n_fill, device=dev, dtype=torch.int32), -1
+        ).to(torch.int32),
+        "ragged n = 2^24 - 1234": holes(n_fill - 1234, 0.01),
+    }
+    for case, x in locf_cases.items():
+        same("locf", case, fill.locf_cuda(x), fill.locf_plain(x))
+    x = locf_cases["monotone seeds"]
+    same("locf", "monotone seeds == torch.cummax", fill.locf_cuda(x),
+         torch.cummax(x, 0).values)
+    locf_b, locf_by = bound(8 * n_fill, n_fill, rate)
+    locf_t = {
+        "ms": cuda_ms(lambda: fill.locf_cuda(x)),
+        "plain_ms": cuda_ms(lambda: fill.locf_plain(x)),
+        "library_ms": cuda_ms(lambda: torch.cummax(x, 0)),
+        "bound_ms": locf_b, "bound_by": locf_by,
+    }
+    xr = locf_cases["random holes"]
+    log(f"[2] locf n=2^24 monotone seeds: kernel {locf_t['ms']:.4f} ms, "
+        f"plain {locf_t['plain_ms']:.4f} ms, torch.cummax "
+        f"{locf_t['library_ms']:.4f} ms, bound {locf_b:.4f} ms ({locf_by}); "
+        f"random holes: kernel {cuda_ms(lambda: fill.locf_cuda(xr)):.4f} ms")
+
+    n_rows, k = 1 << 21, 128     # 2T chain rows at 1M txns, default max_k
+    rows_per_chunk = 64          # scan.py's chunk at this shape
+
+    def plane(n, kk):
+        return (torch.rand(n, kk, device=dev, generator=gen) < 0.05) \
+            .to(torch.int8)
+
+    def starts(n, p):
+        s = torch.rand(n, device=dev, generator=gen) < p
+        s[0] = True
+        return s
+
+    v = plane(n_rows, k)
+    one_seg = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    one_seg[0] = True
+    seg_cases = {
+        "random starts": (v, starts(n_rows, 0.01)),
+        "single segment": (v, one_seg),
+        "every row a start": (v, torch.ones(n_rows, dtype=torch.bool,
+                                            device=dev)),
+        "starts at chunk boundaries": (
+            v, torch.arange(n_rows, device=dev) % rows_per_chunk == 0),
+    }
+    for kk in (16, 100, 8192):
+        seg_cases[f"K={kk} n=4099"] = (plane(4099, kk), starts(4099, 0.02))
+    for case, (vv, ss) in seg_cases.items():
+        same("seg_or", case, scan.seg_or_cuda(vv, ss),
+             scan.seg_or_plain(vv, ss))
+    vv, ss = seg_cases["random starts"]
+    seg_b, seg_by = bound(2 * n_rows * k + n_rows, n_rows * k, rate)
+    seg_t = {
+        "ms": cuda_ms(lambda: scan.seg_or_cuda(vv, ss)),
+        "plain_ms": cuda_ms(lambda: scan.seg_or_plain(vv, ss), reps=10),
+        "library_ms": None,
+        "bound_ms": seg_b, "bound_by": seg_by,
+    }
+    log(f"[2] seg_or (2^21, 128) random starts: kernel {seg_t['ms']:.4f} ms, "
+        f"plain {seg_t['plain_ms']:.4f} ms, bound {seg_b:.4f} ms ({seg_by})")
+    del locf_cases, seg_cases, v, vv, ss, x, xr
+    torch.cuda.empty_cache()
+
+    # ---- 3. main path, full width -----------------------------------------
+    t0 = time.perf_counter()
+    p = packed_la_history(N_TXNS, n_keys=N_KEYS, seed=0)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = device_infer.pad_packed(p, device=dev)
+    torch.cuda.synchronize()
+    t_pad = time.perf_counter() - t0
+    log(f"[3] {N_TXNS} txns, {N_KEYS} keys: generated in {t_gen:.2f} s, "
+        f"padded + staged in {t_pad:.2f} s (T={h.txn_type.shape[0]}, "
+        f"M={h.mop_txn.shape[0]}, R={h.rd_elems.shape[0]}, V={h.v_cap}, "
+        f"O={h.o_cap})")
+
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    (bits, over), t_warm = wall_s(lambda: device_core.core_check(
+        h, p.n_keys, device=dev))
+    checks = [t_warm]
+    for _ in range(3):
+        (bits, over), t = wall_s(lambda: device_core.core_check(
+            h, p.n_keys, device=dev))
+        checks.append(t)
+        b = bits.cpu().tolist()
+        assert b[:12] == [0] * 12 and b[12] == 1, b
+        assert int(over) == 0
+    n_checks = len(checks)
+    assert fill.LAUNCHES == 12 * n_checks, fill.LAUNCHES
+    out, t_infer = wall_s(lambda: device_infer.infer(h, p.n_keys))
+    _, t_sweep = wall_s(lambda: device_core._verdict(out, 128, 64))
+    del out
+    best = min(checks[1:])
+    log(f"[3] bits {b}; checks (s): warm-up {t_warm:.4f}, timed "
+        f"{', '.join(f'{t:.4f}' for t in checks[1:])}; "
+        f"{N_TXNS / best:.1f} ops/s; infer {t_infer * 1e3:.2f} ms, sweep "
+        f"{t_sweep * 1e3:.2f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; locf launches "
+        f"{fill.LAUNCHES} over {n_checks} checks + 1 infer")
+    profile(3, "valid check", "chip_smoke_profile_valid.txt",
+            lambda: device_core.core_check(h, p.n_keys, device=dev))
+
+    # ---- 4. cyclic path, full width ---------------------------------------
+    hs = device_infer.pad_packed(stale_reads(p), device=dev)
+    seg_before = scan.LAUNCHES
+    torch.cuda.reset_peak_memory_stats()
+    (bits, over), t_cyc = wall_s(lambda: device_core.core_check_exact(
+        hs, p.n_keys, device=dev))
+    b = bits.cpu().tolist()
+    assert b[0:9] == [0] * 9 and b[9:12] == [1, 1, 1] and b[12] == 1, b
+    assert int(over) == 0
+    assert scan.LAUNCHES > seg_before, scan.LAUNCHES
+    out, t_infer = wall_s(lambda: device_infer.infer(hs, p.n_keys))
+    _, t_sweep = wall_s(lambda: device_core._verdict(out, 128, 64))
+    n_rw_back = int((out["edges"]["rw"][2]).sum())
+    profile(4, "stale-read sweep", "chip_smoke_profile_stale_sweep.txt",
+            lambda: device_core._verdict(out, 128, 64))
+    del out
+    log(f"[4] stale reads: bits {b}, overflow {int(over)}; core_check_exact "
+        f"{t_cyc:.4f} s; infer {t_infer * 1e3:.2f} ms, sweep "
+        f"{t_sweep * 1e3:.2f} ms; {n_rw_back} rw edges; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    launches = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    log(f"[4] launches over phases 3-4: {launches}")
+    assert launches["locf"] > 0 and launches["seg_or"] > 0, launches
+    del h, hs, p
+    torch.cuda.empty_cache()
+
+    # ---- 5. card == CPU ---------------------------------------------------
+    ps = stale_reads(packed_la_history(N_SMALL, n_keys=N_SMALL // 8, seed=1))
+    hc = device_infer.pad_packed(ps, device="cpu")
+    hg = device_infer.pad_packed(ps, device=dev)
+    want, got = device_infer.infer(hc, ps.n_keys), \
+        device_infer.infer(hg, ps.n_keys)
+    n_arrays = 0
+    for path, a, g in walk(want, got):
+        assert torch.equal(a, g.cpu()), path
+        n_arrays += 1
+    bc, oc = device_core.core_check_exact(hc, ps.n_keys, device="cpu")
+    bg, og = device_core.core_check_exact(hg, ps.n_keys, device=dev)
+    assert torch.equal(bc, bg.cpu()) and int(oc) == int(og), (bc, bg)
+    log(f"[5] {N_SMALL} txns: {n_arrays} infer arrays and core_check_exact "
+        f"bits {bg.cpu().tolist()} equal on card and CPU")
+
+    kernels_line = {"kernels": [
+        dict(name="locf", route="cuda",
+             source="jepsen_tpu_torch/csrc/locf.cu",
+             replaces="jepsen_tpu/ops/pallas_fill.py:105",
+             launches=launches["locf"], max_abs_err=errs["locf"],
+             **locf_t),
+        dict(name="seg_or", route="cuda",
+             source="jepsen_tpu_torch/csrc/seg_or.cu",
+             replaces="jepsen_tpu/ops/pallas_scan.py:76",
+             launches=launches["seg_or"], max_abs_err=errs["seg_or"],
+             **seg_t),
+    ]}
+    log(smi)
+    log(json.dumps(kernels_line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def walk(a, b, path=""):
+    """Pairs of leaf tensors of two `infer` outputs."""
+    if isinstance(a, dict):
+        for key in a:
+            yield from walk(a[key], b[key], f"{path}.{key}")
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from walk(x, y, f"{path}[{i}]")
+    else:
+        yield path, a, b
+
+
+def profile(phase: int, what: str, fname: str, fn) -> None:
+    """One run of `fn` under torch.profiler: device time by operator and
+    kernel, the top of the table printed, the whole table written to
+    chiprun_out/."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
+        f.write(table)
+    log(f"[{phase}] profiled {what}, top device time:")
+    log("\n".join(table.splitlines()[:18]))
+
+
+if __name__ == "__main__":
+    sys.exit(main())
