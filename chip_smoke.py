@@ -1,23 +1,34 @@
 """Drive the PyTorch/H100 port (`jepsen_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR` names an unpacked checkout of another commit (for example
+`git archive <parent> | tar -x -C build/parent`): phase 2 then also times
+that commit's kernel wrappers (`ops/fill.locf_cuda`, `ops/scan.seg_or_cuda`)
+against this tree's in turns (parent, change, change, parent) on the same
+inputs, after checking that both give the same bits.
 
 Phases, each asserting; any failure exits non-zero:
   0. environment: the card's name and power limit (no card: exit 2);
   1. build the hand-written CUDA kernels from `jepsen_tpu_torch/csrc/`;
   2. each kernel against its plain PyTorch version on the card, bit for
-     bit, at the main path's shapes, with its time, the plain version's,
-     the bound, and the one-call library yardstick where there is one;
+     bit, twice back to back, at the main path's shapes and at the edges
+     of the look-back (seg-OR inclusive and exclusive), with its time, the
+     plain version's, the bound, and the one-call library yardstick where
+     there is one; seg-OR's fused exclusive call against the exclusive
+     scan composed of a shift, a `where` and the inclusive kernel;
   3. the main path at full width: the bench's 1M-txn list-append history
      through `pad_packed` and `core_check` (one warm-up, three timed runs),
-     valid verdict bits, 12 forward-fill launches per check;
+     valid verdict bits, 14 forward-fill launches per check, and
+     `torch.cummax` left only in `segmented_cummax` (2 calls);
   4. the same history with 64 seeded stale reads through
      `core_check_exact`: G-single cycles in projections 2-4, converged,
-     the segmented-OR kernel launched;
+     14 forward-fill launches, the segmented-OR kernel's launches;
   5. card == CPU on every `infer` array and on `core_check_exact` for a
      65,536-txn stale-read history.
-The launch counters are set to 0 just before phase 3 and read just after
-phase 4.  The second-to-last line is a JSON object with one entry per
+The launch counters are set to 0 just before the checks of phase 3 and
+just before `core_check_exact` in phase 4, and read just after each; the
+kernels' `launches` are the sum of the two.  The second-to-last line is a JSON object with one entry per
 kernel; the last line is `{"ok": true, "device": {...}}`.  Longer output
 (the profiler's tables) goes to `chiprun_out/`.
 
@@ -26,6 +37,7 @@ Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -44,6 +56,8 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
+LOCF_PER_CHECK = 14          # forward fills in `infer` when n_keys > 1 and
+                             # both monotone layout facts hold
 MOP_APPEND, MOP_READ = 0, 1  # jepsen_tpu_torch.history.soa's
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
@@ -83,9 +97,10 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int = 15) -> float:
-    """Median device time of `fn()` over `reps` launches (CUDA events),
-    after two warm-up calls."""
+def call_ms(fn, reps: int = 10) -> float:
+    """Median device time of `fn()` over `reps` calls, CUDA events around
+    each, after two warm-up calls: for the plain versions, which take
+    milliseconds and allocate as they go."""
     for _ in range(2):
         fn()
     times = []
@@ -98,6 +113,60 @@ def cuda_ms(fn, reps: int = 15) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Device time of one `fn()`: `reps` calls captured in a CUDA graph
+    after two warm-up calls, the median of 7 replays (CUDA events around
+    each) over `reps`.  Replaying the graph keeps the host's launch gaps
+    out of the time, which at the main path's sizes are as long as the
+    kernels.  Inputs of 32 MiB or less stay in L2 across the replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def in_turns(parent, change) -> tuple[list[float], list[float]]:
+    """parent, change, change, parent: the two times of each."""
+    t = [cuda_ms(parent), cuda_ms(change), cuda_ms(change), cuda_ms(parent)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def load_parent(root: str):
+    """The `ops.fill` and `ops.scan` modules of the checkout at `root`,
+    imported beside this tree's under the same package name: this tree's
+    modules are set aside while the parent's load, then put back."""
+    def ours():
+        return [m for m in sys.modules if m == "jepsen_tpu_torch"
+                or m.startswith("jepsen_tpu_torch.")]
+
+    saved = {m: sys.modules.pop(m) for m in ours()}
+    sys.path.insert(0, os.path.abspath(root))
+    try:
+        from jepsen_tpu_torch.ops import fill, scan
+        return fill, scan
+    finally:
+        sys.path.pop(0)
+        for m in ours():
+            del sys.modules[m]
+        sys.modules.update(saved)
 
 
 def wall_s(fn):
@@ -121,7 +190,11 @@ def bound(n_bytes: int, n_ops: int, rate: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="checkout of another commit to time in turns")
+    opts = ap.parse_args(argv)
     # ---- 0. environment ---------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -149,6 +222,20 @@ def main() -> int:
     kernels.lib()
     log(f"[1] built {os.path.basename(so)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    if opts.parent:
+        t0 = time.perf_counter()
+        p_fill, p_scan = load_parent(opts.parent)
+        p_fill.kernels.lib()
+        log(f"[1] built the parent's kernels ({opts.parent}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+    ab = {}
+
+    def parent_vs_change(case, parent, change):
+        assert torch.equal(parent(), change()), case
+        ab[case] = in_turns(parent, change)
+        (p0, p1), (c0, c1) = ab[case]
+        log(f"[2] in turns {case}: parent {p0:.4f} / {p1:.4f} ms, change "
+            f"{c0:.4f} / {c1:.4f} ms")
 
     # ---- 2. kernels vs plain, bit for bit, at the main path's shapes ------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -170,29 +257,42 @@ def main() -> int:
             vals = torch.sort(vals).values
         return torch.where(keep, vals, -1).to(torch.int32)
 
-    n_fill = 1 << 24        # R at 1M txns: 9 of the 12 fills per check
-    chunk = 4096            # locf.cu's CHUNK
+    def twice(kname, case, kernel, plain, *args, **kw):
+        # back to back, so a status word or tile counter left over from
+        # the first launch would show in the second
+        want = plain(*args, **kw)
+        for run in ("", " (again)"):
+            same(kname, case + run, kernel(*args, **kw), want)
+
+    n_fill = 1 << 24        # R at 1M txns: 9 of the 14 fills per check
+    tile = fill.TILE
+    one_in_tile0 = torch.full((n_fill,), -1, dtype=torch.int32, device=dev)
+    one_in_tile0[tile // 2] = 7
     locf_cases = {
         "random holes": holes(n_fill, 0.3),
         "monotone seeds": holes(n_fill, 0.05, monotone=True),
         "all holes": torch.full((n_fill,), -1, dtype=torch.int32,
                                 device=dev),
         "no holes": holes(n_fill, 1.0),
-        "value at each chunk boundary": torch.where(
-            torch.arange(n_fill, device=dev) % chunk == 0,
+        "value at each tile boundary": torch.where(
+            torch.arange(n_fill, device=dev) % tile == 0,
             torch.arange(n_fill, device=dev, dtype=torch.int32), -1
         ).to(torch.int32),
+        "one value, in tile 0 only": one_in_tile0,
         "ragged n = 2^24 - 1234": holes(n_fill - 1234, 0.01),
+        "unaligned view, n = 2^24 - 1": holes(n_fill, 0.001)[1:],
+        "n = 1": holes(1, 1.0),
+        "n = 1000 < one tile": holes(1000, 0.1),
     }
     for case, x in locf_cases.items():
-        same("locf", case, fill.locf_cuda(x), fill.locf_plain(x))
+        twice("locf", case, fill.locf_cuda, fill.locf_plain, x)
     x = locf_cases["monotone seeds"]
     same("locf", "monotone seeds == torch.cummax", fill.locf_cuda(x),
          torch.cummax(x, 0).values)
     locf_b, locf_by = bound(8 * n_fill, n_fill, rate)
     locf_t = {
         "ms": cuda_ms(lambda: fill.locf_cuda(x)),
-        "plain_ms": cuda_ms(lambda: fill.locf_plain(x)),
+        "plain_ms": call_ms(lambda: fill.locf_plain(x)),
         "library_ms": cuda_ms(lambda: torch.cummax(x, 0)),
         "bound_ms": locf_b, "bound_by": locf_by,
     }
@@ -201,46 +301,104 @@ def main() -> int:
         f"plain {locf_t['plain_ms']:.4f} ms, torch.cummax "
         f"{locf_t['library_ms']:.4f} ms, bound {locf_b:.4f} ms ({locf_by}); "
         f"random holes: kernel {cuda_ms(lambda: fill.locf_cuda(xr)):.4f} ms")
+    for lg, what in ((21, "O"), (22, "M")):  # the other fills of a check
+        xs = x[:1 << lg].contiguous()
+        twice("locf", f"monotone seeds n=2^{lg}", fill.locf_cuda,
+              fill.locf_plain, xs)
+        b_s, _ = bound(8 << lg, 1 << lg, rate)
+        log(f"[2] locf n=2^{lg} ({what}) monotone seeds: kernel "
+            f"{cuda_ms(lambda: fill.locf_cuda(xs)):.4f} ms (in L2 across "
+            f"the replays), HBM bound {b_s:.4f} ms; torch.cummax "
+            f"{cuda_ms(lambda: torch.cummax(xs, 0)):.4f} ms")
+        if opts.parent:
+            parent_vs_change(f"locf n=2^{lg} monotone seeds",
+                             lambda: p_fill.locf_cuda(xs),
+                             lambda: fill.locf_cuda(xs))
+    if opts.parent:
+        for case in ("monotone seeds", "random holes", "all holes"):
+            xc = locf_cases[case]
+            parent_vs_change(f"locf n=2^24 {case}",
+                             lambda: p_fill.locf_cuda(xc),
+                             lambda: fill.locf_cuda(xc))
 
     n_rows, k = 1 << 21, 128     # 2T chain rows at 1M txns, default max_k
-    rows_per_chunk = 64          # scan.py's chunk at this shape
+    tile_rows = scan.seg_or_geometry(n_rows, k).tile_rows
 
     def plane(n, kk):
         return (torch.rand(n, kk, device=dev, generator=gen) < 0.05) \
             .to(torch.int8)
 
-    def starts(n, p):
+    def starts(n, p, first=True):
         s = torch.rand(n, device=dev, generator=gen) < p
-        s[0] = True
+        s[0] = first
         return s
 
     v = plane(n_rows, k)
     one_seg = torch.zeros(n_rows, dtype=torch.bool, device=dev)
     one_seg[0] = True
+    last_tile_only = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    last_tile_only[n_rows - tile_rows // 2] = True
     seg_cases = {
         "random starts": (v, starts(n_rows, 0.01)),
         "single segment": (v, one_seg),
         "every row a start": (v, torch.ones(n_rows, dtype=torch.bool,
                                             device=dev)),
-        "starts at chunk boundaries": (
-            v, torch.arange(n_rows, device=dev) % rows_per_chunk == 0),
+        "starts at tile boundaries": (
+            v, torch.arange(n_rows, device=dev) % tile_rows == 0),
+        "first start only in the last tile": (v, last_tile_only),
+        "ragged n = 2^21 - 77, row 0 no start": (
+            v[:n_rows - 77], starts(n_rows - 77, 0.001, first=False)),
+        "n = 1": (plane(1, k), starts(1, 0.0, first=False)),
+        "n = 100 < one tile": (plane(100, k), starts(100, 0.05)),
     }
-    for kk in (16, 100, 8192):
+    for kk in (1, 16, 100, 777, 8192):
         seg_cases[f"K={kk} n=4099"] = (plane(4099, kk), starts(4099, 0.02))
     for case, (vv, ss) in seg_cases.items():
-        same("seg_or", case, scan.seg_or_cuda(vv, ss),
-             scan.seg_or_plain(vv, ss))
+        for excl in (False, True):
+            twice("seg_or", f"{case}{' exclusive' if excl else ''}",
+                  scan.seg_or_cuda, scan.seg_or_plain, vv, ss,
+                  exclusive=excl)
     vv, ss = seg_cases["random starts"]
     seg_b, seg_by = bound(2 * n_rows * k + n_rows, n_rows * k, rate)
+
+    def exclusive_composed(seg_or_cuda=scan.seg_or_cuda):
+        # the exclusive scan as a shift, a zeroing of the start rows and
+        # the inclusive kernel, which the fused call replaces
+        shifted = torch.cat([torch.zeros_like(vv[:1]), vv[:-1]])
+        return seg_or_cuda(
+            torch.where(ss[:, None], torch.zeros_like(shifted), shifted), ss)
+
+    same("seg_or", "exclusive, composed == fused", exclusive_composed(),
+         scan.seg_or_cuda(vv, ss, exclusive=True))
     seg_t = {
         "ms": cuda_ms(lambda: scan.seg_or_cuda(vv, ss)),
-        "plain_ms": cuda_ms(lambda: scan.seg_or_plain(vv, ss), reps=10),
+        "plain_ms": call_ms(lambda: scan.seg_or_plain(vv, ss)),
         "library_ms": None,
         "bound_ms": seg_b, "bound_by": seg_by,
+        "exclusive_ms": cuda_ms(
+            lambda: scan.seg_or_cuda(vv, ss, exclusive=True)),
+        "exclusive_composed_ms": cuda_ms(exclusive_composed),
     }
+    v1 = seg_cases["single segment"]
     log(f"[2] seg_or (2^21, 128) random starts: kernel {seg_t['ms']:.4f} ms, "
-        f"plain {seg_t['plain_ms']:.4f} ms, bound {seg_b:.4f} ms ({seg_by})")
-    del locf_cases, seg_cases, v, vv, ss, x, xr
+        f"exclusive {seg_t['exclusive_ms']:.4f} ms, exclusive composed "
+        f"(cat + where + kernel) {seg_t['exclusive_composed_ms']:.4f} ms, "
+        f"plain {seg_t['plain_ms']:.4f} ms, bound {seg_b:.4f} ms ({seg_by}); "
+        f"single segment: kernel "
+        f"{cuda_ms(lambda: scan.seg_or_cuda(*v1)):.4f} ms")
+    if opts.parent:
+        for case in ("random starts", "single segment"):
+            vc, sc = seg_cases[case]
+            parent_vs_change(f"seg_or (2^21, 128) {case}",
+                             lambda: p_scan.seg_or_cuda(vc, sc),
+                             lambda: scan.seg_or_cuda(vc, sc))
+        parent_vs_change(
+            "seg_or (2^21, 128) exclusive: parent's composition vs fused",
+            lambda: exclusive_composed(p_scan.seg_or_cuda),
+            lambda: scan.seg_or_cuda(vv, ss, exclusive=True))
+        seg_t["in_turns_ms"] = ab["seg_or (2^21, 128) random starts"]
+        locf_t["in_turns_ms"] = ab["locf n=2^24 monotone seeds"]
+    del locf_cases, seg_cases, v, vv, ss, v1, x, xr, one_in_tile0
     torch.cuda.empty_cache()
 
     # ---- 3. main path, full width -----------------------------------------
@@ -270,7 +428,8 @@ def main() -> int:
         assert b[:12] == [0] * 12 and b[12] == 1, b
         assert int(over) == 0
     n_checks = len(checks)
-    assert fill.LAUNCHES == 12 * n_checks, fill.LAUNCHES
+    launches = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    assert launches["locf"] == LOCF_PER_CHECK * n_checks, launches
     out, t_infer = wall_s(lambda: device_infer.infer(h, p.n_keys))
     _, t_sweep = wall_s(lambda: device_core._verdict(out, 128, 64))
     del out
@@ -279,21 +438,32 @@ def main() -> int:
         f"{', '.join(f'{t:.4f}' for t in checks[1:])}; "
         f"{N_TXNS / best:.1f} ops/s; infer {t_infer * 1e3:.2f} ms, sweep "
         f"{t_sweep * 1e3:.2f} ms; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} B; locf launches "
-        f"{fill.LAUNCHES} over {n_checks} checks + 1 infer")
-    profile(3, "valid check", "chip_smoke_profile_valid.txt",
-            lambda: device_core.core_check(h, p.n_keys, device=dev))
+        f"{torch.cuda.max_memory_allocated()} B; launches over {n_checks} "
+        f"checks {launches}")
+    ops = profile(3, "valid check", "chip_smoke_profile_valid.txt",
+                  lambda: device_core.core_check(h, p.n_keys, device=dev))
+    # the monotone fills went to the LOCF kernel: what is left of
+    # torch.cummax is segmented_cummax's two calls (aten::cummax is listed
+    # twice per call, nested; its helper once)
+    n_cummax = ops.get("aten::_cummax_helper", 0)
+    log(f"[3] torch.cummax calls in one valid check: {n_cummax}")
+    assert n_cummax == 2, n_cummax
 
     # ---- 4. cyclic path, full width ---------------------------------------
     hs = device_infer.pad_packed(stale_reads(p), device=dev)
-    seg_before = scan.LAUNCHES
     torch.cuda.reset_peak_memory_stats()
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
     (bits, over), t_cyc = wall_s(lambda: device_core.core_check_exact(
         hs, p.n_keys, device=dev))
+    exact = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
     b = bits.cpu().tolist()
     assert b[0:9] == [0] * 9 and b[9:12] == [1, 1, 1] and b[12] == 1, b
     assert int(over) == 0
-    assert scan.LAUNCHES > seg_before, scan.LAUNCHES
+    # converged with no overflow: one sweep, `_verdict(out, 128, 64)`
+    assert exact["locf"] == LOCF_PER_CHECK and exact["seg_or"] > 0, exact
+    for kname in launches:
+        launches[kname] += exact[kname]
     out, t_infer = wall_s(lambda: device_infer.infer(hs, p.n_keys))
     _, t_sweep = wall_s(lambda: device_core._verdict(out, 128, 64))
     n_rw_back = int((out["edges"]["rw"][2]).sum())
@@ -302,10 +472,10 @@ def main() -> int:
     del out
     log(f"[4] stale reads: bits {b}, overflow {int(over)}; core_check_exact "
         f"{t_cyc:.4f} s; infer {t_infer * 1e3:.2f} ms, sweep "
-        f"{t_sweep * 1e3:.2f} ms; {n_rw_back} rw edges; max_memory_allocated "
+        f"{t_sweep * 1e3:.2f} ms; launches in core_check_exact {exact}; "
+        f"{n_rw_back} rw edges; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
-    launches = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
-    log(f"[4] launches over phases 3-4: {launches}")
+    log(f"[4] launches on the main path, phases 3-4: {launches}")
     assert launches["locf"] > 0 and launches["seg_or"] > 0, launches
     del h, hs, p
     torch.cuda.empty_cache()
@@ -358,10 +528,10 @@ def walk(a, b, path=""):
         yield path, a, b
 
 
-def profile(phase: int, what: str, fname: str, fn) -> None:
+def profile(phase: int, what: str, fname: str, fn) -> dict[str, int]:
     """One run of `fn` under torch.profiler: device time by operator and
     kernel, the top of the table printed, the whole table written to
-    chiprun_out/."""
+    chiprun_out/.  Returns the call count of each operator."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -376,6 +546,7 @@ def profile(phase: int, what: str, fname: str, fn) -> None:
         f.write(table)
     log(f"[{phase}] profiled {what}, top device time:")
     log("\n".join(table.splitlines()[:18]))
+    return {e.key: e.count for e in prof.key_averages()}
 
 
 if __name__ == "__main__":

@@ -430,9 +430,14 @@ def infer(h: PaddedLA, n_keys: int) -> Dict[str, dict]:
     if h.app_val_mono:
         # append val ids nondecreasing in mop order (host-verified): the
         # forward-filled index vector is sorted, masked rows land on the
-        # previous append's slot with a no-op payload
-        w_idx = torch.cummax(torch.where(is_append, h.mop_val, -1), 0) \
-            .values.clamp(0, V)
+        # previous append's slot with a no-op payload.  The JAX package
+        # takes a cummax here (jepsen_tpu/checkers/elle/device_infer.py:395);
+        # under app_val_mono the running max of these seeds is the last
+        # non-hole value, which is what LOCF gives (appends have val >= 0,
+        # so no seed that is not a hole equals the hole -1)
+        seeds = torch.where(is_append, h.mop_val, -1)
+        assert seeds.dtype == I32, seeds.dtype
+        w_idx = locf(seeds).clamp(0, V)
     else:
         w_idx = torch.where(is_append, h.mop_val, V)
     writer = _scatter(V + 1, -1, w_idx, app_txn, "amax", keep=V)
@@ -553,8 +558,13 @@ def infer(h: PaddedLA, n_keys: int) -> Dict[str, dict]:
     has_elems = known_read & (h.mop_rd_len > 0)
     rd_slot = torch.where(has_elems, h.mop_rd_start, R)
     if h.rd_start_mono:
-        seed_idx = torch.cummax(torch.where(has_elems, h.mop_rd_start, -1),
-                                0).values.clamp(0, R)
+        # rd_start strictly increasing over reads with elements, and >= 0
+        # (host-verified): the JAX package's cummax
+        # (jepsen_tpu/checkers/elle/device_infer.py:588) of these seeds is
+        # their last non-hole value, which is what LOCF gives
+        seeds = torch.where(has_elems, h.mop_rd_start, -1)
+        assert seeds.dtype == I32, seeds.dtype
+        seed_idx = locf(seeds).clamp(0, R)
     else:
         seed_idx = rd_slot
     seed = _scatter(R + 1, -1, seed_idx,

@@ -6,8 +6,9 @@ starts and fills the holes forward; `locf` does that fill.
 
 - `locf_plain`: the plain PyTorch version of the function (a cummax of
   the non-hole positions, then one gather).
-- `locf_cuda`: the hand-written CUDA kernel (`csrc/locf.cu`), for CUDA
-  tensors only; counts its launches in `LAUNCHES`.
+- `locf_cuda`: the hand-written CUDA kernel (`csrc/locf.cu`, one pass
+  with decoupled look-back), for CUDA tensors only; counts its launches
+  in `LAUNCHES`.
 - `locf`: dispatch on the tensor's device.  A CUDA tensor goes to the
   kernel (which raises on a dtype or shape it does not take), a CPU tensor
   to the plain version.  Nothing falls back.
@@ -24,6 +25,16 @@ HOLE = -1
 #: launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
+#: elements per tile of `csrc/locf.cu` (its TILE)
+TILE = 4096
+
+
+def locf_geometry(n: int) -> tuple[int, int]:
+    """(tiles, scratch words) of the kernel for n elements: one uint64
+    status word per tile, after one that holds the tile counter."""
+    tiles = -(-n // TILE)
+    return tiles, 1 + tiles
+
 
 def locf_plain(x: torch.Tensor) -> torch.Tensor:
     """out[i] = x[j] for the largest j <= i with x[j] != -1, else -1.
@@ -38,8 +49,8 @@ def locf_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def locf_cuda(x: torch.Tensor) -> torch.Tensor:
-    """`locf_plain` by the CUDA kernel: three launches (chunk last value,
-    chunk carries, fill) on the current stream."""
+    """`locf_plain` by the CUDA kernel: one memset of the tile status and
+    one launch, on the current stream."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"locf_cuda takes a CUDA tensor, got {x.device}")
@@ -51,15 +62,13 @@ def locf_cuda(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out
-    chunks = int(lib.jt_locf_chunks(n))
-    scratch = torch.empty(2 * max(chunks, 1), dtype=torch.int32,
-                          device=x.device)
+    _, words = locf_geometry(n)
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_locf_int32(x.data_ptr(), out.data_ptr(),
-                                scratch.data_ptr(),
-                                scratch.data_ptr() + 4 * max(chunks, 1),
-                                n, stream)
+                                scratch.data_ptr(), n, int(aligned), stream)
     kernels.check("locf", err)
     LAUNCHES += 1
     return out

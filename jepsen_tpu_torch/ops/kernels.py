@@ -97,12 +97,10 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     L = ctypes.CDLL(str(build()))
-    L.jt_locf_chunks.argtypes = [_I64]
-    L.jt_locf_chunks.restype = _I64
-    L.jt_locf_int32.argtypes = [_P, _P, _P, _P, _I64, _P]
+    L.jt_locf_int32.argtypes = [_P, _P, _P, _I64, _I32, _P]
     L.jt_locf_int32.restype = _I32
-    L.jt_seg_or_int8.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-                                 _I32, _P]
+    L.jt_seg_or_int8.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _I32,
+                                 _I32, _I32, _I64, _I32, _I32, _P]
     L.jt_seg_or_int8.restype = _I32
     L.jt_error_string.argtypes = [_I32]
     L.jt_error_string.restype = ctypes.c_char_p

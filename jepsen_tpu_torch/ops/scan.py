@@ -1,20 +1,25 @@
-"""Inclusive segmented prefix-OR over an (n, K) int8 plane: kernel 2 of
-the port.
+"""Segmented prefix-OR over an (n, K) int8 plane, inclusive or exclusive:
+kernel 2 of the port.
 
 Counterpart of `jepsen_tpu/ops/pallas_scan.py`.  The cycle sweep's chain
 pass (`ops/cycle_sweep.py`) propagates reachability labels along chains
-with this scan.
+with the exclusive scan.
 
 - `seg_or_plain`: the plain PyTorch version of the function (segmented
-  Hillis-Steele doubling, as `jepsen_tpu/ops/segments.py::_seg_scan_loop`).
-- `seg_or_cuda`: the hand-written CUDA kernel (`csrc/seg_or.cu`), for CUDA
-  tensors only; counts its launches in `LAUNCHES`.
+  Hillis-Steele doubling, as `jepsen_tpu/ops/segments.py::_seg_scan_loop`;
+  the exclusive scan shifts the plane down one row and zeroes the start
+  rows first, as `jepsen_tpu/ops/segments.py::segmented_prefix_or` does).
+- `seg_or_cuda`: the hand-written CUDA kernel (`csrc/seg_or.cu`, one pass
+  with decoupled look-back, the exclusive shift fused), for CUDA tensors
+  only; counts its launches in `LAUNCHES`.
 - `seg_or`: dispatch on the tensor's device.  A CUDA tensor goes to the
   kernel (which raises on a dtype or shape it does not take), a CPU tensor
   to the plain version.  Nothing falls back.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -23,20 +28,30 @@ from jepsen_tpu_torch.ops import kernels
 #: launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
-#: aim for about this many threads per pass (one per chunk x column word)
-_TARGET_THREADS = 1 << 18
+#: `csrc/seg_or.cu`'s threads per block and rows per thread run
+THREADS = 256
+ITEMS = 8
 
 
-def seg_or_plain(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+def seg_or_plain(values: torch.Tensor, starts: torch.Tensor,
+                 exclusive: bool = False) -> torch.Tensor:
     """out[i] = OR of values[j] for j from the last start <= i (or row 0)
-    through i.  State (v, blocked): blocked[i] = a start lies in
-    (i - dist, i], so row i may not absorb the row `dist` back."""
+    through i (exclusive: strictly before i, so a start row gets 0).
+    State (v, blocked): blocked[i] = a start lies in (i - dist, i], so row
+    i may not absorb the row `dist` back."""
     n = values.shape[0]
     if n == 0:
         return values.clone()
-    v = values
-    blocked = starts.to(torch.bool)
     bshape = (n,) + (1,) * (values.dim() - 1)
+    blocked = starts.to(torch.bool)
+    v = values
+    if exclusive:
+        # inclusive scan over the values shifted down one row, with the
+        # start rows zeroed (they must not see the previous segment's last
+        # value)
+        shifted = torch.cat([torch.zeros_like(values[:1]), values[:-1]])
+        v = torch.where(blocked.reshape(bshape), torch.zeros_like(shifted),
+                        shifted)
     dist = 1
     while dist < n:
         take = torch.zeros(n, dtype=torch.bool, device=values.device)
@@ -51,16 +66,46 @@ def seg_or_plain(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _word(k: int, *tensors: torch.Tensor) -> int:
-    for word in (16, 4):
-        if k % word == 0 and all(t.data_ptr() % word == 0 for t in tensors):
-            return word
-    return 1
+@dataclasses.dataclass(frozen=True)
+class SegOrGeometry:
+    """How `csrc/seg_or.cu` cuts an (n, K) plane into tiles."""
+    word: int          # bytes per column word: 16, 4 or 1
+    nw: int            # column words per row
+    cbw: int           # column words per column block (one thread each;
+                       # a power of two, so a warp holds whole runs)
+    runs: int          # row runs of ITEMS rows per tile
+    tile_rows: int     # runs * ITEMS
+    row_tiles: int
+    col_blocks: int
+    tiles: int         # row_tiles * col_blocks, one block each
+    state_words: int   # uint32: the tile counter, then one state per tile
+    value_bytes: int   # each tile's aggregate and inclusive prefix
 
 
-def seg_or_cuda(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """`seg_or_plain` by the CUDA kernel: three launches (chunk aggregates,
-    chunk carries, apply) on the current stream."""
+def seg_or_geometry(n: int, k: int, addresses: tuple[int, ...] = ()
+                    ) -> SegOrGeometry:
+    """The kernel's tiling of an (n, K) plane whose values and output lie
+    at `addresses`: the widest word that divides K and every address, a
+    tile of a power-of-two block of at most 256 column words by
+    `THREADS // cbw` runs of ITEMS rows (256 x 128 bytes at K = 128), and
+    the scratch sizes."""
+    word = next((w for w in (16, 4)
+                 if k % w == 0 and all(a % w == 0 for a in addresses)), 1)
+    nw = k // word
+    cbw = min(1 << (nw - 1).bit_length(), THREADS)
+    runs = THREADS // cbw
+    tile_rows = runs * ITEMS
+    row_tiles = -(-n // tile_rows)
+    col_blocks = -(-nw // cbw)
+    tiles = row_tiles * col_blocks
+    return SegOrGeometry(word, nw, cbw, runs, tile_rows, row_tiles,
+                         col_blocks, tiles, 1 + tiles, 2 * tiles * cbw * word)
+
+
+def seg_or_cuda(values: torch.Tensor, starts: torch.Tensor,
+                exclusive: bool = False) -> torch.Tensor:
+    """`seg_or_plain` by the CUDA kernel: one memset of the tile states
+    and one launch, on the current stream."""
     global LAUNCHES
     if values.device.type != "cuda" or starts.device != values.device:
         raise ValueError("seg_or_cuda takes CUDA tensors on one device, got "
@@ -77,29 +122,29 @@ def seg_or_cuda(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     if n == 0 or k == 0:
         return out
     st = starts.contiguous().view(torch.uint8)
-    word = _word(k, values, out)
-    nw = k // word
-    chunk_rows = min(4096, max(16, -(-n * nw // _TARGET_THREADS)))
-    n_chunks = -(-n // chunk_rows)
-    agg = torch.empty((2, n_chunks, k), dtype=torch.int8,
-                      device=values.device)
-    seen = torch.empty(n_chunks, dtype=torch.uint8, device=values.device)
+    g = seg_or_geometry(n, k, (values.data_ptr(), out.data_ptr()))
+    states = torch.empty(g.state_words, dtype=torch.int32,
+                         device=values.device)
+    tile_values = torch.empty(g.value_bytes, dtype=torch.int8,
+                              device=values.device)
     lib = kernels.lib()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.jt_seg_or_int8(values.data_ptr(), st.data_ptr(),
-                                 out.data_ptr(), agg[0].data_ptr(),
-                                 agg[1].data_ptr(), seen.data_ptr(), n, k,
-                                 word, chunk_rows, stream)
+        err = lib.jt_seg_or_int8(
+            values.data_ptr(), st.data_ptr(), out.data_ptr(),
+            states.data_ptr(), tile_values.data_ptr(), n, k, g.word, g.cbw,
+            g.runs, g.tiles, g.col_blocks, int(exclusive), stream)
     kernels.check("seg_or", err)
     LAUNCHES += 1
     return out
 
 
-def seg_or(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """Inclusive segmented prefix-OR of an (n, K) int8 plane."""
+def seg_or(values: torch.Tensor, starts: torch.Tensor,
+           exclusive: bool = False) -> torch.Tensor:
+    """Segmented prefix-OR of an (n, K) int8 plane (any shape on the
+    CPU), inclusive or exclusive."""
     if values.device.type == "cuda":
-        return seg_or_cuda(values, starts)
+        return seg_or_cuda(values, starts, exclusive)
     if values.device.type == "cpu":
-        return seg_or_plain(values, starts)
+        return seg_or_plain(values, starts, exclusive)
     raise ValueError(f"seg_or: no implementation for device {values.device}")

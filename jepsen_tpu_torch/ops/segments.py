@@ -6,9 +6,10 @@ detection over sorted keys, segmented cumsum and cummax.  Every function
 is bit-equal to its JAX counterpart on the same inputs.
 
 The segmented prefix-OR goes to `ops.scan.seg_or`, which launches the
-CUDA kernel for a CUDA tensor at every n and runs the plain version for a
-CPU tensor (the JAX package's 2^17-row switch only bounded XLA compile
-time, which eager PyTorch does not have).
+CUDA kernel for a CUDA tensor at every n, the exclusive shift fused into
+it, and runs the plain version for a CPU tensor (the JAX package's
+2^17-row switch only bounded XLA compile time, which eager PyTorch does
+not have).
 """
 
 from __future__ import annotations
@@ -38,21 +39,9 @@ def segmented_prefix_or(values: torch.Tensor, starts: torch.Tensor,
     element of each segment.  Returns, for each position, the OR of all
     values from its segment start through itself (or strictly before, if
     exclusive)."""
-    n = values.shape[0]
-    if n == 0:
+    if values.shape[0] == 0:
         return values
-    if exclusive:
-        # inclusive scan over values shifted down one slot, with
-        # segment-start positions zeroed (they must not see the previous
-        # segment's last value)
-        shifted = torch.cat([torch.zeros_like(values[:1]), values[:-1]])
-        values = torch.where(_bcast(starts, shifted),
-                             torch.zeros_like(shifted), shifted)
-    return _seg_or_impl(values, starts)
-
-
-def _seg_or_impl(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    return scan.seg_or(values.contiguous(), starts)
+    return scan.seg_or(values.contiguous(), starts, exclusive)
 
 
 def scatter_or(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,

@@ -125,12 +125,22 @@ def test_pad_packed_equal_field_by_field(name):
     ("corrupt-element", None), ("stale-reads", None),
     ("stale-reads", "ir"), ("corrupt-element", "all"), ("g1a", "all"),
 ])
-def test_infer_equal_to_jax_kernel_branch(jax_kernel_branch, name, strip):
+def test_infer_equal_to_jax_kernel_branch(jax_kernel_branch, monkeypatch,
+                                          name, strip):
     hj, ht, n_keys = padded_pair(name, strip)
     want = jdi.infer(hj, n_keys)
     fill.LAUNCHES = 0
+    calls = []
+    monkeypatch.setattr(tdi, "locf",
+                        lambda x: calls.append(x.shape) or fill.locf(x))
     got = tdi.infer(ht, n_keys)
     assert fill.LAUNCHES == 0  # CPU tensors take the plain forward-fill
+    # 12 fills (9 with one key: no slot-key fills), and one each for the
+    # monotone writer and read-element seed indices, which every corpus
+    # takes unless its layout facts are stripped
+    mono = int(ht.app_val_mono) + int(ht.rd_start_mono)
+    assert mono == (0 if strip else 2), (ht.app_val_mono, ht.rd_start_mono)
+    assert len(calls) == (9 if n_keys == 1 else 12) + mono, calls
     n = 0
     for path, w, g in leaves(want, got):
         np.testing.assert_array_equal(g, w, err_msg=path)

@@ -61,16 +61,25 @@ SCAN_CASES = [
 ]
 
 
+#: the port's two ways in: the segment primitive, and the kernel module's
+#: plain version that the CUDA kernel is held against on the card
+PREFIX_OR_ENTRIES = {
+    "segments": tseg.segmented_prefix_or,
+    "seg_or_plain": scan.seg_or_plain,
+}
+
+
+@pytest.mark.parametrize("entry", list(PREFIX_OR_ENTRIES))
 @pytest.mark.parametrize("exclusive", [False, True])
 @pytest.mark.parametrize("first_start", [True, False])
 @pytest.mark.parametrize("n,k,p_start,block", SCAN_CASES)
 def test_segmented_prefix_or_matches_jax(n, k, p_start, block, first_start,
-                                         exclusive):
+                                         exclusive, entry):
     vals, starts = _plane(n, k, p_start, seed=n + k,
                           first_start=first_start)
     want = j_prefix_or(jnp.asarray(vals), jnp.asarray(starts),
                        exclusive=exclusive)
-    got = tseg.segmented_prefix_or(torch.from_numpy(vals),
+    got = PREFIX_OR_ENTRIES[entry](torch.from_numpy(vals),
                                    torch.from_numpy(starts),
                                    exclusive=exclusive)
     _eq(got, want)
@@ -205,8 +214,28 @@ def test_locf_plain_adversarial_layouts():
             j_locf(jnp.asarray(x)) if len(x) else x)
 
 
-def test_locf_plain_is_cummax_on_monotone_seeds():
-    x = _seed_array(np.random.default_rng(7), 50_000, 0.05, monotone=True)
+def _monotone_seeds(case):
+    """Seeds as `infer` builds them under app_val_mono / rd_start_mono:
+    nondecreasing values where the mask holds, the hole -1 elsewhere."""
+    rng = np.random.default_rng(7)
+    n = 50_000
+    if case == "holes":
+        x = _seed_array(rng, n, 0.05, monotone=True)
+        return x, x != pallas_fill.HOLE
+    mask = {"all masked": np.zeros(n, bool),
+            "none masked": np.ones(n, bool),
+            "unmasked -1": rng.random(n) < 0.05}[case]
+    # in the last case the first unmasked values are -1 themselves
+    lo = -1 if case == "unmasked -1" else 0
+    vals = np.sort(rng.integers(lo, 40, n)).astype(np.int32)
+    return np.where(mask, vals, pallas_fill.HOLE).astype(np.int32), mask
+
+
+@pytest.mark.parametrize("case", ["holes", "unmasked -1", "all masked",
+                                  "none masked"])
+def test_locf_plain_is_cummax_on_monotone_seeds(case):
+    x, mask = _monotone_seeds(case)
+    assert (mask & (x == pallas_fill.HOLE)).any() == (case == "unmasked -1")
     got = fill.locf_plain(torch.from_numpy(x))
     _eq(got, torch.cummax(torch.from_numpy(x), 0).values)
     _eq(got, j_locf_blocked(jnp.asarray(x), block=1024))
@@ -219,6 +248,8 @@ def test_cpu_tensors_take_the_plain_versions():
     v = torch.tensor([[1, 0], [0, 1], [0, 0]], dtype=torch.int8)
     s = torch.tensor([True, False, True])
     assert scan.seg_or(v, s).tolist() == [[1, 0], [1, 1], [0, 0]]
+    assert scan.seg_or(v, s, exclusive=True).tolist() == [[0, 0], [1, 0],
+                                                           [0, 0]]
     assert tseg.segmented_prefix_or(v, s).tolist() == [[1, 0], [1, 1],
                                                         [0, 0]]
     assert fill.LAUNCHES == 0 and scan.LAUNCHES == 0
@@ -240,3 +271,46 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build()
     assert {p.name for p in kernels.sources()} == {"locf.cu", "seg_or.cu"}
+
+
+# (n, K, value/output address alignment) -> (word, words per row, column
+# block, runs, tile rows, row tiles, column blocks)
+GEOMETRY_CASES = {
+    "K=1": ((5000, 1, 256), (1, 1, 1, 256, 2048, 3, 1)),
+    "K=16 ragged": ((4099, 16, 256), (16, 1, 1, 256, 2048, 3, 1)),
+    "K=100": ((777, 100, 256), (4, 25, 32, 8, 64, 13, 1)),
+    "K=128 sweep": ((1 << 21, 128, 256), (16, 8, 8, 32, 256, 8192, 1)),
+    "K=128 4-aligned": ((1000, 128, 4), (4, 32, 32, 8, 64, 16, 1)),
+    "K=128 unaligned": ((1000, 128, 1), (1, 128, 128, 2, 16, 63, 1)),
+    "K=300 bytes": ((50, 300, 2), (1, 300, 256, 1, 8, 7, 2)),
+    "K=8192 ragged": ((4099, 8192, 256), (16, 512, 256, 1, 8, 513, 2)),
+    "K=8192 bytes": ((9, 8192, 1), (1, 8192, 256, 1, 8, 2, 32)),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY_CASES))
+def test_seg_or_geometry(case):
+    (n, k, align), want = GEOMETRY_CASES[case]
+    g = scan.seg_or_geometry(n, k, (1 << 20, (1 << 21) + align))
+    assert (g.word, g.nw, g.cbw, g.runs, g.tile_rows, g.row_tiles,
+            g.col_blocks) == want
+    # one block per tile; a state word per tile after the counter, and
+    # each tile's aggregate and inclusive prefix (K = 128 at the sweep's
+    # shape: 32 KiB of states, 2 MiB of values)
+    assert g.tiles == g.row_tiles * g.col_blocks
+    assert g.state_words == 1 + g.tiles
+    assert g.value_bytes == 2 * g.tiles * g.cbw * g.word
+    # every column word and row is in exactly one tile, and a tile fits
+    # one block of THREADS threads
+    assert g.cbw * g.runs == scan.THREADS and g.cbw & (g.cbw - 1) == 0
+    assert g.tile_rows == g.runs * scan.ITEMS
+    assert (g.col_blocks - 1) * g.cbw < g.nw <= g.col_blocks * g.cbw
+    assert (g.row_tiles - 1) * g.tile_rows < n <= g.row_tiles * g.tile_rows
+
+
+@pytest.mark.parametrize("n,tiles", [(1, 1), (4095, 1), (4096, 1),
+                                     (4097, 2), ((1 << 24) - 1234, 4096),
+                                     (1 << 24, 4096)])
+def test_locf_geometry(n, tiles):
+    # one status word per tile after the counter: 32 KiB + 8 at 2^24
+    assert fill.locf_geometry(n) == (tiles, 1 + tiles)
