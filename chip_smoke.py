@@ -25,12 +25,29 @@ Phases, each asserting; any failure exits non-zero:
      `core_check_exact`: G-single cycles in projections 2-4, converged,
      14 forward-fill launches, the segmented-OR kernel's launches;
   5. card == CPU on every `infer` array and on `core_check_exact` for a
-     65,536-txn stale-read history.
-The launch counters are set to 0 just before the checks of phase 3 and
-just before `core_check_exact` in phase 4, and read just after each; the
-kernels' `launches` are the sum of the two.  The second-to-last line is a JSON object with one entry per
-kernel; the last line is `{"ok": true, "device": {...}}`.  Longer output
-(the profiler's tables) goes to `chiprun_out/`.
+     65,536-txn stale-read history;
+  6. the checker API, `list_append.check`, on the card:
+     a. the 1M-txn valid history under strict serializability (one
+        warm-up, three timed calls): valid, no anomaly, not degraded, 14
+        forward-fill and no segmented-OR launches per call, and its time
+        beside phase 3's `core_check`;
+     b. the stale-read corpus of phase 4 under strong snapshot isolation,
+        from 65,536 txns, doubling while one check stays under 60 s (and
+        the next is not predicted past 180 s), up to 1M: a G-single-family
+        anomaly with explained cycles, segmented-OR launches, and each
+        check's time split into pad, infer, sweeps and host
+        classification (witness BFS, cycle search, rendering);
+     c. card == CPU: the whole result dict of 6b's first, 65,536-txn
+        check against the same check on the CPU;
+     d. two op histories built with the port's `history` module (a G1c
+        pair; G1a, G1b and internal) with their anomaly types, card ==
+        CPU.
+The launch counters are set to 0 just before the checks of phase 3, just
+before `core_check_exact` in phase 4 and just before each `check` of phase
+6a and 6b, and read just after each; the kernels' `launches` are their
+sum.  The second-to-last line is a JSON object with one entry per kernel;
+the last line is `{"ok": true, "device": {...}}`.  Longer output (the
+profiler's tables) goes to `chiprun_out/`.
 
 Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
 """
@@ -56,6 +73,13 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
+STALE_LIMIT_S = 60.0         # 6b doubles while one check stays under this
+STALE_NEXT_S = 180.0         # ... and the next is not predicted past this
+G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
+#: the stale-read checks' model: it proscribes the G-single family and not
+#: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
+#: check for minutes (PERF.md)
+STALE_MODELS = ["strong-snapshot-isolation"]
 LOCF_PER_CHECK = 14          # forward fills in `infer` when n_keys > 1 and
                              # both monotone layout facts hold
 MOP_APPEND, MOP_READ = 0, 1  # jepsen_tpu_torch.history.soa's
@@ -477,7 +501,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.max_memory_allocated()} B")
     log(f"[4] launches on the main path, phases 3-4: {launches}")
     assert launches["locf"] > 0 and launches["seg_or"] > 0, launches
-    del h, hs, p
+    del h, hs
     torch.cuda.empty_cache()
 
     # ---- 5. card == CPU ---------------------------------------------------
@@ -495,6 +519,12 @@ def main(argv=None) -> int:
     assert torch.equal(bc, bg.cpu()) and int(oc) == int(og), (bc, bg)
     log(f"[5] {N_SMALL} txns: {n_arrays} infer arrays and core_check_exact "
         f"bits {bg.cpu().tolist()} equal on card and CPU")
+    del hc, hg, want, got
+    torch.cuda.empty_cache()
+
+    # ---- 6. the checker API on the card -----------------------------------
+    check_api(p, best, launches)
+    del p
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -514,6 +544,192 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_api(p, best: float, launches: dict) -> None:
+    """Phase 6: `list_append.check` on the card (see the module
+    docstring).  `p` is phase 3's history, `best` its best `core_check`
+    time; the launches of each counted check are added to `launches`."""
+    from jepsen_tpu_torch.checkers.elle import list_append
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    split = Split(list_append)
+
+    def counted_check(history, models):
+        """One `check` on the card with the counters set to 0 just before
+        it and read just after; adds them to the main path's launches."""
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        with split:
+            r, t = wall_s(lambda: list_append.check(
+                history, models, _force_no_fallback=True))
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        assert "degraded" not in r, r
+        return r, t, n
+
+    checks6 = []
+    for _ in range(4):
+        r, t, n = counted_check(p, ["strict-serializable"])
+        assert r["valid?"] is True and r["anomaly-types"] == [], r
+        assert n == {"locf": LOCF_PER_CHECK, "seg_or": 0}, n
+        checks6.append(t)
+    best6 = min(checks6[1:])
+    log(f"[6a] list_append.check, {N_TXNS} txns valid, strict-serializable: "
+        f"warm-up {checks6[0]:.4f} s, timed "
+        f"{', '.join(f'{t:.4f}' for t in checks6[1:])} s; "
+        f"{split.calls['sweeps']} projections; last call {split}; "
+        f"{N_TXNS / best6:.1f} ops/s; core_check (phase 3) best {best:.4f} "
+        f"s, so the checker adds {best6 - best:.4f} s")
+
+    n_txns, t_prev, first = N_SMALL, None, None
+    while True:
+        ps6 = stale_reads(packed_la_history(n_txns, n_keys=n_txns // 8,
+                                            seed=0))
+        r, t, n = counted_check(ps6, STALE_MODELS)
+        assert r["valid?"] is False, r["anomaly-types"]
+        family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
+        assert family, r["anomaly-types"]
+        n_cycles = explained_cycles(r)
+        assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
+        log(f"[6b] stale reads, {n_txns} txns, {'+'.join(STALE_MODELS)}: "
+            f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
+            f"projections; {family}; {n_cycles} cycles, every edge "
+            f"explained; launches {n}")
+        if first is None:
+            first = (ps6, r)
+        if t >= STALE_LIMIT_S or n_txns >= N_TXNS:
+            break
+        if t_prev is not None and t * t / t_prev > STALE_NEXT_S:
+            log(f"[6b] next size {min(2 * n_txns, N_TXNS)} predicted at "
+                f"{t * t / t_prev:.1f} s: stopping")
+            break
+        t_prev, n_txns = t, min(2 * n_txns, N_TXNS)
+    log(f"[6b] largest size reached: {n_txns} txns in {t:.4f} s")
+    del ps6
+
+    # 6c: 6b's first check (on the card) against the same check on the CPU
+    pc, got = first
+    first = None
+    want, t_cpu = wall_s(lambda: list_append.check(
+        pc, STALE_MODELS, _force_no_fallback=True, device="cpu"))
+    assert got == want, (got, want)
+    log(f"[6c] {pc.n_txns} txns with stale reads: the result dicts are "
+        f"equal on card and CPU ({got['anomaly-types']}, "
+        f"{explained_cycles(got)} rendered cycles, not {got['not']}, "
+        f"also-not {got['also-not']}); the CPU check took {t_cpu:.4f} s")
+    del pc
+
+    for hname, h, expect in op_histories():
+        got = list_append.check(h, ["strict-serializable"],
+                                _force_no_fallback=True)
+        assert got["valid?"] is False, (hname, got)
+        assert expect <= set(got["anomaly-types"]), (hname, got)
+        assert "degraded" not in got, got
+        assert got == list_append.check(h, ["strict-serializable"],
+                                        _force_no_fallback=True,
+                                        device="cpu"), hname
+        log(f"[6d] {hname}: {got['anomaly-types']}, equal on card and CPU")
+    log(f"[6] launches on the main path, phases 3-4 and 6: {launches}")
+
+
+class Split:
+    """Wall time of one `list_append.check` by stage.  While active, the
+    module's stage functions are wrapped in timers that synchronize the
+    card before each clock read: pad (`pad_packed`), infer, sweeps (one
+    `detect_cycles` per projection), and the three parts of host
+    classification: the witness BFS (`_materialize_host_edges`,
+    `_witness_regions`), the cycle search (`find_cycle`) and the
+    rendering (`_render`)."""
+
+    STAGES = (("pad", "pad_packed"), ("infer", "infer"),
+              ("sweeps", "detect_cycles"),
+              ("bfs", "_materialize_host_edges"),
+              ("bfs", "_witness_regions"), ("find_cycle", "find_cycle"),
+              ("render", "_render"))
+
+    def __init__(self, module):
+        self.module = module
+        self.s = {}
+        self.calls = {}
+
+    def __enter__(self):
+        self.s = dict.fromkeys(
+            ("pad", "infer", "sweeps", "bfs", "find_cycle", "render"), 0.0)
+        self.calls = dict.fromkeys(self.s, 0)
+        self.saved = {}
+        for stage, fname in self.STAGES:
+            fn = getattr(self.module, fname)
+            self.saved[fname] = fn
+            setattr(self.module, fname, self._timed(stage, fn))
+        return self
+
+    def _timed(self, stage, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[stage] += time.perf_counter() - t0
+            self.calls[stage] += 1
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for fname, fn in self.saved.items():
+            setattr(self.module, fname, fn)
+        return False
+
+    def __str__(self):
+        host = self.s["bfs"] + self.s["find_cycle"] + self.s["render"]
+        return (", ".join(f"{k} {v:.4f} s" for k, v in self.s.items())
+                + f"; host classification {host:.4f} s")
+
+
+def explained_cycles(result) -> int:
+    """Number of rendered cycles in a `check` result; asserts that every
+    edge of each carries the explainer's justification."""
+    n = 0
+    for reports in result["anomalies"].values():
+        for rep in reports:
+            if "cycle" in rep:
+                assert rep["cycle"], rep
+                assert all(e.get("why") for e in rep["cycle"]), rep
+                n += 1
+    assert n > 0, result["anomaly-types"]
+    return n
+
+
+def op_histories():
+    """(name, op history, anomaly types it must show): the G1c pair and
+    the G1a / G1b / internal history of tests/test_device_la.py, built
+    with the port's own `history` module."""
+    from jepsen_tpu_torch.history import fail, history, invoke, ok
+
+    def concurrent(*txns):
+        inv, comp = [], []
+        for i, (mops_inv, mops_ok) in enumerate(txns):
+            inv.append(invoke(i, "txn", mops_inv))
+            comp.append(fail(i, "txn", mops_inv) if mops_ok == "fail"
+                        else ok(i, "txn", mops_ok))
+        return history(inv + comp)
+
+    yield "G1c pair", concurrent(
+        ([["append", "x", 1], ["r", "y", None]],
+         [["append", "x", 1], ["r", "y", [9]]]),
+        ([["append", "y", 9], ["r", "x", None]],
+         [["append", "y", 9], ["r", "x", [1]]])), {"G1c"}
+    yield "G1a / G1b / internal", concurrent(
+        ([["append", "x", 1], ["append", "x", 2]],
+         [["append", "x", 1], ["append", "x", 2]]),
+        ([["r", "x", None]], [["r", "x", [1]]]),
+        ([["append", "y", 7]], "fail"),
+        ([["r", "y", None]], [["r", "y", [7]]]),
+        ([["append", "z", 5], ["r", "z", None]],
+         [["append", "z", 5], ["r", "z", [5, 9]]])), \
+        {"G1a", "G1b", "internal"}
 
 
 def walk(a, b, path=""):

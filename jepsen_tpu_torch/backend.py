@@ -15,10 +15,15 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
+class NoDeviceError(RuntimeError):
+    """The caller asked for the card and none is visible."""
+
+
 def default_device() -> torch.device:
-    """The first CUDA device; raises when none is visible."""
+    """The first CUDA device; raises `NoDeviceError` when none is
+    visible."""
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoDeviceError(
             "jepsen_tpu_torch: no CUDA device is visible; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
     return torch.device("cuda", torch.cuda.current_device())

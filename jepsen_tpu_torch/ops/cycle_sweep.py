@@ -15,8 +15,8 @@ Counterpart of `jepsen_tpu/ops/cycle_sweep.py`, single window:
 Control flow runs on the host: the fixpoint is a Python loop with one
 scalar read per round, the skips for zero backward edges are Python
 branches, and the scan over projections is a Python loop.  A result with
-`converged=False` must not be trusted (callers fall back, as in the JAX
-package).
+`converged=False` must not be trusted (`list_append.check` raises on it;
+the JAX package falls back to its host oracle).
 """
 
 from __future__ import annotations
@@ -276,19 +276,26 @@ class SweepResult:
 
 
 def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
-                  device: backend.DeviceLike = None) -> SweepResult:
+                  deadline=None, device: backend.DeviceLike = None
+                  ) -> SweepResult:
     """Run the sweep on `device` (the CUDA card unless the caller names
     the CPU); grow the budget if backward edges exceed max_k or the
     fixpoint needs more rounds, up to the caps.
 
     Exact: a cycle is reported iff one exists in the (masked) graph,
     provided converged=True.  Witnesses identify backward edges on cycles
-    (of the first max_k)."""
+    (of the first max_k).
+
+    `deadline` (a `resilience.Deadline`) is polled on entry and before
+    each grow retry — the budget-doubling fixpoint is this driver's
+    unbounded loop; expiry raises `DeadlineExceeded`."""
     dev = backend.resolve(device)
     arrays = [t.to(dev) for t in (g.rank, g.nc_src, g.nc_dst, g.nc_mask,
                                   g.chain_nodes, g.chain_starts,
                                   g.chain_mask)]
     while True:
+        if deadline is not None:
+            deadline.check("cycle-sweep")
         has, wit, n_back, conv = _sweep_arrays(g.n_nodes, max_k, max_rounds,
                                                *arrays)
         if n_back > max_k:
@@ -303,6 +310,11 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
             max_rounds = min(max_rounds * 2, MAX_ROUNDS_CAP)
             continue
         break
+    if not has:
+        # no witness bit is set: skip pulling the edge arrays to the host
+        return SweepResult(has_cycle=False,
+                           witness_edge_ids=np.zeros(0, np.int64),
+                           n_backward=n_back, converged=conv)
     wit = wit.cpu().numpy()
     # map witness backward-edge ids back to edge-array positions
     mask = g.nc_mask.cpu().numpy()

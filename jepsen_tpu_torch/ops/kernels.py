@@ -7,8 +7,10 @@ library's file name carries a digest of the sources and the flags, so an
 edited source builds anew and an unchanged one is loaded from the build
 directory (`build/` at the checkout root, listed in `.gitignore`).
 
-A missing `nvcc` or a failed build raises: nothing falls back to the plain
-PyTorch versions.  Nothing here runs at import time.
+A missing `nvcc`, a failed build or a failed launch raises `KernelError`:
+nothing falls back to the plain PyTorch versions, and the checkers'
+host-oracle fallback lets this error through.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched: `nvcc` missing, a
+    compile or link step failed, or a launch left a CUDA error behind."""
+
+
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -49,7 +56,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found: jepsen_tpu_torch builds its CUDA kernels from "
         "csrc/ at first use and needs the CUDA toolkit (put nvcc on PATH "
         "or set CUDA_HOME)")
@@ -78,7 +85,7 @@ def build() -> Path:
         if proc.returncode:
             failed.append(src.name)
     if failed:
-        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+        raise KernelError(f"nvcc failed on {', '.join(failed)}:\n"
                            + "\n".join(logs))
     tmp = BUILD_DIR / f"libjt_kernels.{tag}.so.tmp"
     link = subprocess.run(
@@ -88,7 +95,7 @@ def build() -> Path:
     for _, obj, _ in jobs:
         obj.unlink(missing_ok=True)
     if link.returncode:
-        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        raise KernelError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, so)
     return so
 
@@ -96,7 +103,11 @@ def build() -> Path:
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
-    L = ctypes.CDLL(str(build()))
+    so = build()
+    try:
+        L = ctypes.CDLL(str(so))
+    except OSError as e:
+        raise KernelError(f"loading {so} failed: {e}") from e
     L.jt_locf_int32.argtypes = [_P, _P, _P, _I64, _I32, _P]
     L.jt_locf_int32.restype = _I32
     L.jt_seg_or_int8.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _I32,
@@ -112,4 +123,4 @@ def check(name: str, err: int) -> None:
     error behind."""
     if err:
         msg = lib().jt_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
+        raise KernelError(f"CUDA kernel {name} failed: {msg} ({err})")

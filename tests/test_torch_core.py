@@ -6,7 +6,8 @@ the port's purity.
 and overflow on every corpus (the JAX side on its default branch here on
 the CPU), the helpers must round-trip both packages' arrays exactly,
 `packed_la_history` must equal the original, and importing the port and
-running a check must load neither `jax` nor `jepsen_tpu`.
+running a check (`core_check_exact`, `list_append.check`, `oracle.check`)
+must load neither `jax` nor `jepsen_tpu`.
 """
 
 import dataclasses
@@ -156,6 +157,17 @@ p = chip_smoke.stale_reads(packed_la_history(300, n_keys=20, seed=1))
 h = device_infer.pad_packed(p, device="cpu")
 bits, over = device_core.core_check_exact(h, p.n_keys, device="cpu")
 assert bits.tolist()[12] == 1, bits
+from jepsen_tpu_torch.checkers.elle import list_append, oracle
+from jepsen_tpu_torch.history import history, invoke, ok
+h = history([invoke(0, "txn", [["append", "x", 1], ["r", "y", None]]),
+             invoke(1, "txn", [["append", "y", 9], ["r", "x", None]]),
+             ok(0, "txn", [["append", "x", 1], ["r", "y", [9]]]),
+             ok(1, "txn", [["append", "y", 9], ["r", "x", [1]]])])
+r = list_append.check(h, ["strict-serializable"], device="cpu",
+                      _force_no_fallback=True)
+o = oracle.check(h, ["strict-serializable"])
+assert (r["valid?"], r["anomaly-types"]) == (o["valid?"], o["anomaly-types"])
+assert "G1c" in r["anomaly-types"], r
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)

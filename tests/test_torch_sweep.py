@@ -3,7 +3,8 @@
 The same graphs (numpy, from a seed, or the edges `infer` derives from a
 stale-read history) go through the JAX sweep and the port's on the CPU;
 has_cycle, witnesses, backward-edge counts and convergence must be equal,
-including the budget grow-retries and the all-forward skip.
+including the budget grow-retries and the all-forward skip; an expired
+deadline stops both sweeps, polled at the same points.
 """
 
 import numpy as np
@@ -18,8 +19,10 @@ from chip_smoke import stale_reads  # noqa: E402
 from jepsen_tpu.checkers.elle import device_core as jdc  # noqa: E402
 from jepsen_tpu.checkers.elle import device_infer as jdi  # noqa: E402
 from jepsen_tpu.ops import cycle_sweep as jcs  # noqa: E402
+from jepsen_tpu import resilience as jres  # noqa: E402
 from jepsen_tpu.workloads import synth  # noqa: E402
 from jepsen_tpu_torch.ops import cycle_sweep as tcs  # noqa: E402
+from jepsen_tpu_torch import resilience as tres  # noqa: E402
 
 FIELDS = ("rank", "nc_src", "nc_dst", "nc_mask", "chain_nodes",
           "chain_starts", "chain_mask")
@@ -189,3 +192,36 @@ def test_projection_scan_all_forward():
         t["chain_starts"], [torch.from_numpy(m) for m in a["chain_masks"]],
         np.asarray(jdc.chain_include_stack()).tolist())
     assert got == (True, 0, [0, 0, 0, 0, 0])
+
+
+def test_detect_cycles_expired_deadline_raises():
+    arrays = random_graph(40, 12, 0, 10)
+    gj, gt = graphs(40, arrays)
+    with pytest.raises(jres.DeadlineExceeded):
+        jcs.detect_cycles(gj, deadline=jres.Deadline(0.0))
+    with pytest.raises(tres.DeadlineExceeded, match="cycle-sweep"):
+        tcs.detect_cycles(gt, deadline=tres.Deadline(0.0), device="cpu")
+
+
+class Polls:
+    """A deadline that records where it was polled and never expires."""
+
+    def __init__(self):
+        self.sites = []
+
+    def check(self, what=""):
+        self.sites.append(what)
+
+
+def test_detect_cycles_polls_before_every_grow_retry():
+    # max_k = 8 overflows once, max_rounds = 2 is too few: the sweep
+    # runs three times, and both packages poll before each run
+    arrays = random_graph(60, 70, 1, 20)
+    gj, gt = graphs(60, arrays)
+    want, got = Polls(), Polls()
+    assert_same_result(jcs.detect_cycles(gj, max_k=8, max_rounds=2,
+                                         deadline=want),
+                       tcs.detect_cycles(gt, max_k=8, max_rounds=2,
+                                         deadline=got, device="cpu"))
+    assert got.sites == want.sites
+    assert len(got.sites) >= 2 and set(got.sites) == {"cycle-sweep"}
