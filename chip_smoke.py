@@ -31,22 +31,46 @@ Phases, each asserting; any failure exits non-zero:
         warm-up, three timed calls): valid, no anomaly, not degraded, 14
         forward-fill and no segmented-OR launches per call, and its time
         beside phase 3's `core_check`;
-     b. the stale-read corpus of phase 4 under strong snapshot isolation,
-        from 65,536 txns, doubling while one check stays under 60 s (and
-        the next is not predicted past 180 s), up to 1M: a G-single-family
-        anomaly with explained cycles, segmented-OR launches, and each
-        check's time split into pad, infer, sweeps and host
-        classification (witness BFS, cycle search, rendering);
-     c. card == CPU: the whole result dict of 6b's first, 65,536-txn
-        check against the same check on the CPU;
+     b. the stale-read corpus of phase 4 under strong snapshot isolation
+        at 65,536 txns: a G-single-family anomaly with explained cycles,
+        segmented-OR launches, and the check's time split into pad, infer,
+        sweeps and host classification (witness BFS, cycle search,
+        rendering);
+     c. card == CPU: the whole result dict of 6b's check against the same
+        check on the CPU;
      d. two op histories built with the port's `history` module (a G1c
         pair; G1a, G1b and internal) with their anomaly types, card ==
-        CPU.
+        CPU;
+  7. the rw-register checker (BASELINE config 3) and `HistoryIR`:
+     a. config 3, `packed_rw_history(1M, n_keys=125,000, **RW_KW)`, through
+        `rw_register.check(..., ["snapshot-isolation"])` (one warm-up,
+        three timed calls): valid, fused, not degraded, no launch of
+        either kernel (no fill on the rw path, no backward edge to sweep),
+        each call split into `pad_packed`, `infer_rw`, the five-projection
+        sweep and the version sweep, peak device memory; then
+        `rw_core_check` alone on the padded history, its bits and time
+        beside phase 3's `core_check`;
+     b. 64 stale reads (`stale_reads_rw`) in the same history through
+        `device_rw.check`: invalid, exact, a cycle in the realtime
+        projection, segmented-OR launches;
+     c. the full report: the same corpus at 131,072 txns (65,536 if that
+        takes over 120 s) through `rw_register.check` under strong
+        snapshot isolation: G-single-family cycles, every edge explained,
+        the time split into fused path, sweeps, witness BFS, `find_cycle`,
+        rendering and the rest (host inference);
+     d. card == CPU: the whole result dict of `rw_register.check` on a
+        16,384-txn stale-read history (fused path first), every `infer_rw`
+        array and the `rw_core_check` outputs at 65,536 txns, and
+        `rw_core_check` on three op histories (one with cyclic versions);
+     e. two `list_append.check` calls on one `HistoryIR` of phase 3's
+        history: the first pads, the second calls `pad_packed` zero times;
+        both times and the IR's `build_s`.
 The launch counters are set to 0 just before the checks of phase 3, just
-before `core_check_exact` in phase 4 and just before each `check` of phase
-6a and 6b, and read just after each; the kernels' `launches` are their
-sum.  The second-to-last line is a JSON object with one entry per kernel;
-the last line is `{"ok": true, "device": {...}}`.  Longer output (the
+before `core_check_exact` in phase 4, just before each `check` of phase
+6a and 6b and each counted call of phase 7, and read just after each; the
+kernels' `launches` are their sum.  The command's total time, the card's
+name and power limit, and a JSON object with one entry per kernel come
+before the last line, `{"ok": true, "device": {...}}`.  Longer output (the
 profiler's tables) goes to `chiprun_out/`.
 
 Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
@@ -73,8 +97,6 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
-STALE_LIMIT_S = 60.0         # 6b doubles while one check stays under this
-STALE_NEXT_S = 180.0         # ... and the next is not predicted past this
 G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
 #: the stale-read checks' model: it proscribes the G-single family and not
 #: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
@@ -83,6 +105,14 @@ STALE_MODELS = ["strong-snapshot-isolation"]
 LOCF_PER_CHECK = 14          # forward fills in `infer` when n_keys > 1 and
                              # both monotone layout facts hold
 MOP_APPEND, MOP_READ = 0, 1  # jepsen_tpu_torch.history.soa's
+RW_STALE_WINDOW = 256        # stale_reads_rw: reads at most this many txns
+                             # after the write they observed
+N_REPORT = 131_072           # 7c: the first power of two above
+                             # rw_register.FUSED_MIN_TXNS
+N_REPORT_SMALL = 65_536      # ... and its size when that takes too long
+REPORT_LIMIT_S = 120.0
+N_CMP = 16_384               # 7d: the card == CPU result dicts
+T_START = time.perf_counter()
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
 # int32 rate outside the tensor cores (half the 67 TFLOP/s float32 rate:
@@ -114,6 +144,45 @@ def stale_reads(p, n_reads: int = N_STALE, seed: int = 0):
     pick = rng.choice(cand, size=min(n_reads, len(cand)), replace=False)
     q = dataclasses.replace(p, mop_rd_len=p.mop_rd_len.copy())
     q.mop_rd_len[pick] -= 1
+    return q
+
+
+def stale_reads_rw(p, n_reads: int = N_STALE, seed: int = 0,
+                   window: int = RW_STALE_WINDOW):
+    """A copy of rw-register PackedTxns `p` in which `n_reads` seeded
+    external reads return the version before the one they observed: reads
+    of their key's first version, written by an earlier txn at most
+    `window` txns before, return the key's initial state (nil) instead.
+
+    rw-register infers version orders only from the initial state and from
+    txn-internal structure, so a read of an older *written* version has no
+    anti-dependency out of it and no checker can see it (both packages
+    call such a history valid).  The initial state precedes every version:
+    the stale reader anti-depends (rw) on the writer that committed before
+    it, a backward edge that process or real-time order closes into a
+    G-single cycle.  The window keeps each cycle's region small for the
+    host classification.  As in `stale_reads`, a read whose txn writes
+    its key is skipped: candidates are the only mop of their (txn, key)
+    run."""
+    rng = np.random.default_rng(seed)
+    m = len(p.mop_txn)
+    order = np.lexsort((np.arange(m), p.mop_key, p.mop_txn))
+    t, k = p.mop_txn[order], p.mop_key[order]
+    run_start = np.r_[True, (t[1:] != t[:-1]) | (k[1:] != k[:-1])]
+    alone = np.empty(m, bool)
+    alone[order] = run_start & np.r_[run_start[1:], True]
+    w = np.nonzero(p.mop_kind == MOP_APPEND)[0]
+    first = w[np.unique(p.mop_key[w], return_index=True)[1]]
+    is_first = np.zeros(p.n_vals, bool)
+    is_first[p.mop_val[first]] = True
+    w_txn = np.zeros(p.n_vals, np.int64)
+    w_txn[p.mop_val[w]] = p.mop_txn[w]
+    v = np.maximum(p.mop_val, 0)
+    cand = np.nonzero((p.mop_kind == MOP_READ) & (p.mop_val >= 0) & alone
+                      & is_first[v] & (p.mop_txn - w_txn[v] <= window))[0]
+    pick = rng.choice(cand, size=min(n_reads, len(cand)), replace=False)
+    q = dataclasses.replace(p, mop_val=p.mop_val.copy())
+    q.mop_val[pick] = -1
     return q
 
 
@@ -524,6 +593,9 @@ def main(argv=None) -> int:
 
     # ---- 6. the checker API on the card -----------------------------------
     check_api(p, best, launches)
+
+    # ---- 7. the rw-register checker and HistoryIR on the card -------------
+    check_rw(p, best, launches, dev)
     del p
 
     kernels_line = {"kernels": [
@@ -538,6 +610,7 @@ def main(argv=None) -> int:
              launches=launches["seg_or"], max_abs_err=errs["seg_or"],
              **seg_t),
     ]}
+    log(f"[8] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {
@@ -554,7 +627,7 @@ def check_api(p, best: float, launches: dict) -> None:
     from jepsen_tpu_torch.ops import fill, scan
     from jepsen_tpu_torch.workloads.synth import packed_la_history
 
-    split = Split(list_append)
+    split = la_split()
 
     def counted_check(history, models):
         """One `check` on the card with the counters set to 0 just before
@@ -584,43 +657,27 @@ def check_api(p, best: float, launches: dict) -> None:
         f"{N_TXNS / best6:.1f} ops/s; core_check (phase 3) best {best:.4f} "
         f"s, so the checker adds {best6 - best:.4f} s")
 
-    n_txns, t_prev, first = N_SMALL, None, None
-    while True:
-        ps6 = stale_reads(packed_la_history(n_txns, n_keys=n_txns // 8,
-                                            seed=0))
-        r, t, n = counted_check(ps6, STALE_MODELS)
-        assert r["valid?"] is False, r["anomaly-types"]
-        family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
-        assert family, r["anomaly-types"]
-        n_cycles = explained_cycles(r)
-        assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
-        log(f"[6b] stale reads, {n_txns} txns, {'+'.join(STALE_MODELS)}: "
-            f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
-            f"projections; {family}; {n_cycles} cycles, every edge "
-            f"explained; launches {n}")
-        if first is None:
-            first = (ps6, r)
-        if t >= STALE_LIMIT_S or n_txns >= N_TXNS:
-            break
-        if t_prev is not None and t * t / t_prev > STALE_NEXT_S:
-            log(f"[6b] next size {min(2 * n_txns, N_TXNS)} predicted at "
-                f"{t * t / t_prev:.1f} s: stopping")
-            break
-        t_prev, n_txns = t, min(2 * n_txns, N_TXNS)
-    log(f"[6b] largest size reached: {n_txns} txns in {t:.4f} s")
-    del ps6
+    ps6 = stale_reads(packed_la_history(N_SMALL, n_keys=N_SMALL // 8, seed=0))
+    r, t, n = counted_check(ps6, STALE_MODELS)
+    assert r["valid?"] is False, r["anomaly-types"]
+    family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
+    assert family, r["anomaly-types"]
+    n_cycles = explained_cycles(r)
+    assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
+    log(f"[6b] stale reads, {N_SMALL} txns, {'+'.join(STALE_MODELS)}: "
+        f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
+        f"projections; {family}; {n_cycles} cycles, every edge "
+        f"explained; launches {n}")
 
-    # 6c: 6b's first check (on the card) against the same check on the CPU
-    pc, got = first
-    first = None
+    # 6c: 6b's check (on the card) against the same check on the CPU
     want, t_cpu = wall_s(lambda: list_append.check(
-        pc, STALE_MODELS, _force_no_fallback=True, device="cpu"))
-    assert got == want, (got, want)
-    log(f"[6c] {pc.n_txns} txns with stale reads: the result dicts are "
-        f"equal on card and CPU ({got['anomaly-types']}, "
-        f"{explained_cycles(got)} rendered cycles, not {got['not']}, "
-        f"also-not {got['also-not']}); the CPU check took {t_cpu:.4f} s")
-    del pc
+        ps6, STALE_MODELS, _force_no_fallback=True, device="cpu"))
+    assert r == want, (r, want)
+    log(f"[6c] {N_SMALL} txns with stale reads: the result dicts are "
+        f"equal on card and CPU ({r['anomaly-types']}, "
+        f"{explained_cycles(r)} rendered cycles, not {r['not']}, "
+        f"also-not {r['also-not']}); the CPU check took {t_cpu:.4f} s")
+    del ps6
 
     for hname, h, expect in op_histories():
         got = list_append.check(h, ["strict-serializable"],
@@ -635,35 +692,211 @@ def check_api(p, best: float, launches: dict) -> None:
     log(f"[6] launches on the main path, phases 3-4 and 6: {launches}")
 
 
+def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
+    """Phase 7: the rw-register checker and `HistoryIR` on the card `dev`
+    (see the module docstring).  `p_la` is phase 3's list-append history
+    and `best` its best `core_check` time; the launches of each counted
+    call are added to `launches`."""
+    from jepsen_tpu_torch.checkers.elle import (
+        device_infer,
+        device_rw,
+        list_append,
+        rw_register,
+        txn_cycles,
+    )
+    from jepsen_tpu_torch.history import HistoryIR
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+    from jepsen_tpu_torch.workloads.synth import (
+        RW_KW,
+        packed_rw_history,
+        rw_keys_for,
+    )
+
+    def counted(fn):
+        """`fn()` on the card with the counters set to 0 just before it
+        and read just after; adds them to the main path's launches."""
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        out, t = wall_s(fn)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return out, t, n
+
+    # ---- 7a. config 3, valid ----------------------------------------------
+    n_keys = rw_keys_for(N_TXNS)
+    t0 = time.perf_counter()
+    p = packed_rw_history(N_TXNS, n_keys=n_keys, **RW_KW)
+    log(f"[7a] config 3: {N_TXNS} txns, {n_keys} keys, {RW_KW}: generated "
+        f"in {time.perf_counter() - t0:.2f} s")
+    split = Split((("pad_packed", device_rw, "pad_packed"),
+                   ("infer_rw", device_rw, "infer_rw"),
+                   ("projection sweep", device_rw, "projection_scan"),
+                   ("version sweep", device_rw, "_sweep_arrays")))
+    torch.cuda.reset_peak_memory_stats()
+    checks = []
+    for _ in range(4):
+        with split:
+            r, t, n = counted(lambda: rw_register.check(
+                p, ["snapshot-isolation"]))
+        assert r["valid?"] is True and r.get("fused-device") is True, r
+        assert "degraded" not in r and r["anomaly-types"] == [], r
+        # no fill on the rw path; a valid serial history has no backward
+        # edge, so no sweep propagates and seg-OR never launches
+        assert n == {"locf": 0, "seg_or": 0}, n
+        checks.append(t)
+    best7 = min(checks[1:])
+    log(f"[7a] rw_register.check, snapshot-isolation: warm-up "
+        f"{checks[0]:.4f} s, timed {', '.join(f'{t:.4f}' for t in checks[1:])}"
+        f" s; best {best7:.4f} s, {N_TXNS / best7:.1f} txns/s; last call "
+        f"{split}; seg-OR launches per call {n['seg_or']}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    h = device_infer.pad_packed(p, device=dev)
+    m_cap = h.mop_txn.shape[0]
+    cores = []
+    for _ in range(4):
+        (bits, over, rw_over), t, n = counted(lambda: device_rw.rw_core_check(
+            h, p.n_keys, rw_cap=m_cap, device=dev))
+        cores.append(t)
+    b = bits.cpu().tolist()
+    assert b == [0] * 11 + [1] and int(over) == 0 and int(rw_over) == 0, b
+    log(f"[7a] rw_core_check alone (T={h.txn_type.shape[0]}, M={m_cap}, "
+        f"R={h.rd_elems.shape[0]}, rw_cap={m_cap}): bits {b}; warm-up "
+        f"{cores[0]:.4f} s, best {min(cores[1:]):.4f} s; list-append "
+        f"core_check (phase 3) best {best:.4f} s; launches per call {n}")
+    del h
+
+    # ---- 7b. config 3 with stale reads --------------------------------------
+    ps = stale_reads_rw(p, N_STALE, seed=0)
+    del p
+    with split:
+        r, t, n = counted(lambda: device_rw.check(ps))
+    assert r["valid?"] is False and r["exact"] is True, r
+    assert r["cycles"]["G2-family-realtime"], r
+    assert n["seg_or"] > 0 and n["locf"] == 0, n
+    log(f"[7b] {N_STALE} stale reads in {N_TXNS} txns: device_rw.check "
+        f"{t:.4f} s ({split}), valid? {r['valid?']}, exact {r['exact']}, "
+        f"counts {r['counts']}, cycle bits {r['cycles']}; launches {n}")
+    del ps
+
+    # ---- 7c. the full report ----------------------------------------------
+    def report(n_txns):
+        q = stale_reads_rw(packed_rw_history(
+            n_txns, n_keys=rw_keys_for(n_txns), **RW_KW), N_STALE, seed=0)
+        stages = Split((("fused path", device_rw, "check"),
+                        ("sweeps", cycle_sweep, "detect_cycles"),
+                        ("bfs", list_append, "_witness_regions"),
+                        ("find_cycle", txn_cycles, "find_cycle"),
+                        ("render", txn_cycles, "_render_cycle")))
+        with stages:
+            r, t, n = counted(lambda: rw_register.check(q, STALE_MODELS))
+        return q, r, t, n, stages
+
+    n_report = N_REPORT
+    q, r, t, n, split = report(n_report)
+    if t > REPORT_LIMIT_S:
+        log(f"[7c] {n_report} txns took {t:.4f} s: checking "
+            f"{N_REPORT_SMALL} txns")
+        n_report = N_REPORT_SMALL
+        saved, rw_register.FUSED_MIN_TXNS = rw_register.FUSED_MIN_TXNS, \
+            n_report
+        try:
+            q, r, t, n, split = report(n_report)
+        finally:
+            rw_register.FUSED_MIN_TXNS = saved
+    assert r["valid?"] is False and "degraded" not in r, r
+    family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
+    assert family, r["anomaly-types"]
+    n_cycles = explained_cycles(r)
+    assert n["seg_or"] > 0, n
+    rest = t - sum(split.s.values())
+    log(f"[7c] rw_register.check, {n_report} txns with {N_STALE} stale "
+        f"reads, {'+'.join(STALE_MODELS)}: {t:.4f} s ({split}; host "
+        f"inference and the rest {rest:.4f} s); {family}; {n_cycles} "
+        f"cycles, every edge explained; launches {n}")
+    del q
+
+    # ---- 7d. card == CPU ----------------------------------------------------
+    q = stale_reads_rw(packed_rw_history(
+        N_CMP, n_keys=rw_keys_for(N_CMP), **RW_KW), N_STALE, seed=0)
+    saved, rw_register.FUSED_MIN_TXNS = rw_register.FUSED_MIN_TXNS, N_CMP
+    try:
+        got = rw_register.check(q, STALE_MODELS)
+        want, t_cpu = wall_s(lambda: rw_register.check(q, STALE_MODELS,
+                                                       device="cpu"))
+    finally:
+        rw_register.FUSED_MIN_TXNS = saved
+    assert got == want, (got, want)
+    assert got["valid?"] is False and explained_cycles(got) > 0, got
+    log(f"[7d] rw_register.check, {N_CMP} txns with stale reads, fused path "
+        f"first: the result dicts are equal on card and CPU "
+        f"({got['anomaly-types']}); the CPU check took {t_cpu:.4f} s")
+    q = stale_reads_rw(packed_rw_history(
+        N_SMALL, n_keys=rw_keys_for(N_SMALL), **RW_KW), N_STALE, seed=0)
+    hc = device_infer.pad_packed(q, device="cpu")
+    hg = device_infer.pad_packed(q, device=dev)
+    n_arrays = 0
+    for path, a, g in walk(device_rw.infer_rw(hc, q.n_keys),
+                           device_rw.infer_rw(hg, q.n_keys)):
+        assert torch.equal(a, g.cpu()), path
+        n_arrays += 1
+    bc = device_rw.rw_core_check(hc, q.n_keys, device="cpu")
+    bg = device_rw.rw_core_check(hg, q.n_keys, device=dev)
+    assert all(torch.equal(x, y.cpu()) for x, y in zip(bc, bg)), (bc, bg)
+    log(f"[7d] {N_SMALL} txns with stale reads: {n_arrays} infer_rw arrays "
+        f"and rw_core_check {[x.cpu().tolist() for x in bg]} equal on card "
+        f"and CPU")
+    for hname, hist in rw_op_histories():
+        qc = device_infer.pad_packed(hist, device="cpu")
+        bc = device_rw.rw_core_check(qc, hist.n_keys, device="cpu")
+        bg = device_rw.rw_core_check(qc, hist.n_keys, device=dev)
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(bc, bg)), hname
+        log(f"[7d] {hname}: rw_core_check {bg[0].cpu().tolist()} equal on "
+            f"card and CPU")
+    del q, hc, hg
+
+    # ---- 7e. HistoryIR on the card ------------------------------------------
+    ir = HistoryIR.of(p_la)
+    pads = Split((("pad", device_infer, "pad_packed"),
+                  ("pad", list_append, "pad_packed")))
+    times = []
+    for _ in range(2):
+        with pads:
+            r, t, n = counted(lambda: list_append.check(
+                ir, ["strict-serializable"], _force_no_fallback=True))
+        assert r["valid?"] is True and "degraded" not in r, r
+        assert n == {"locf": LOCF_PER_CHECK, "seg_or": 0}, n
+        times.append((t, pads.calls["pad"]))
+    assert [c for _, c in times] == [1, 0], times
+    log(f"[7e] list_append.check twice on one HistoryIR of phase 3's "
+        f"history: {times[0][0]:.4f} s with the pad, {times[1][0]:.4f} s "
+        f"without (pad_packed calls {[c for _, c in times]}); build_s "
+        f"{ir.build_s}")
+    log(f"[7] launches on the main path, phases 3-4, 6 and 7: {launches}")
+
+
 class Split:
-    """Wall time of one `list_append.check` by stage.  While active, the
-    module's stage functions are wrapped in timers that synchronize the
-    card before each clock read: pad (`pad_packed`), infer, sweeps (one
-    `detect_cycles` per projection), and the three parts of host
-    classification: the witness BFS (`_materialize_host_edges`,
-    `_witness_regions`), the cycle search (`find_cycle`) and the
-    rendering (`_render`)."""
+    """Wall time of a call by stage.  `stages` is a sequence of (stage,
+    module, function name); while active, each named function is replaced
+    by a timer around it that synchronizes the card before each clock
+    read.  The host classification is the sum of the stages "bfs",
+    "find_cycle" and "render" where they are timed."""
 
-    STAGES = (("pad", "pad_packed"), ("infer", "infer"),
-              ("sweeps", "detect_cycles"),
-              ("bfs", "_materialize_host_edges"),
-              ("bfs", "_witness_regions"), ("find_cycle", "find_cycle"),
-              ("render", "_render"))
+    HOST = ("bfs", "find_cycle", "render")
 
-    def __init__(self, module):
-        self.module = module
+    def __init__(self, stages):
+        self.stages = stages
         self.s = {}
         self.calls = {}
 
     def __enter__(self):
-        self.s = dict.fromkeys(
-            ("pad", "infer", "sweeps", "bfs", "find_cycle", "render"), 0.0)
+        self.s = dict.fromkeys((stage for stage, _, _ in self.stages), 0.0)
         self.calls = dict.fromkeys(self.s, 0)
-        self.saved = {}
-        for stage, fname in self.STAGES:
-            fn = getattr(self.module, fname)
-            self.saved[fname] = fn
-            setattr(self.module, fname, self._timed(stage, fn))
+        self.saved = []
+        for stage, module, fname in self.stages:
+            fn = getattr(module, fname)
+            self.saved.append((module, fname, fn))
+            setattr(module, fname, self._timed(stage, fn))
         return self
 
     def _timed(self, stage, fn):
@@ -678,14 +911,32 @@ class Split:
         return run
 
     def __exit__(self, *exc):
-        for fname, fn in self.saved.items():
-            setattr(self.module, fname, fn)
+        for module, fname, fn in reversed(self.saved):
+            setattr(module, fname, fn)
         return False
 
     def __str__(self):
-        host = self.s["bfs"] + self.s["find_cycle"] + self.s["render"]
-        return (", ".join(f"{k} {v:.4f} s" for k, v in self.s.items())
-                + f"; host classification {host:.4f} s")
+        out = ", ".join(f"{k} {v:.4f} s" for k, v in self.s.items())
+        if any(k in self.s for k in self.HOST):
+            host = sum(self.s.get(k, 0.0) for k in self.HOST)
+            out += f"; host classification {host:.4f} s"
+        return out
+
+
+def la_split():
+    """`Split` of one `list_append.check`: pad (`pad_packed`), infer,
+    sweeps (one `detect_cycles` per projection), and the three parts of
+    host classification: the witness BFS (`_materialize_host_edges`,
+    `_witness_regions`), the cycle search (`find_cycle`) and the rendering
+    (`_render`)."""
+    from jepsen_tpu_torch.checkers.elle import list_append as la
+
+    return Split((("pad", la, "pad_packed"), ("infer", la, "infer"),
+                  ("sweeps", la, "detect_cycles"),
+                  ("bfs", la, "_materialize_host_edges"),
+                  ("bfs", la, "_witness_regions"),
+                  ("find_cycle", la, "find_cycle"),
+                  ("render", la, "_render")))
 
 
 def explained_cycles(result) -> int:
@@ -730,6 +981,31 @@ def op_histories():
         ([["append", "z", 5], ["r", "z", None]],
          [["append", "z", 5], ["r", "z", [5, 9]]])), \
         {"G1a", "G1b", "internal"}
+
+
+def rw_op_histories():
+    """(name, rw-register PackedTxns): a G1c pair, write skew and a cyclic
+    version order, built with the port's own `history` module; the last
+    gives the version sweep a backward edge."""
+    from jepsen_tpu_torch.history import history, invoke, ok, pack_txns
+
+    def concurrent(*txns):
+        return pack_txns(history(
+            [invoke(i, "txn", inv) for i, (inv, _) in enumerate(txns)]
+            + [ok(i, "txn", done) for i, (_, done) in enumerate(txns)]),
+            "rw-register")
+
+    yield "G1c pair", concurrent(
+        ([["w", "x", 1], ["r", "y", None]], [["w", "x", 1], ["r", "y", 9]]),
+        ([["w", "y", 9], ["r", "x", None]], [["w", "y", 9], ["r", "x", 1]]))
+    yield "write skew", concurrent(
+        ([["r", "x", None], ["w", "y", 10]],
+         [["r", "x", None], ["w", "y", 10]]),
+        ([["r", "y", None], ["w", "x", 1]],
+         [["r", "y", None], ["w", "x", 1]]))
+    yield "cyclic versions", concurrent(
+        ([["r", "x", None], ["w", "x", 2]], [["r", "x", 1], ["w", "x", 2]]),
+        ([["r", "x", None], ["w", "x", 1]], [["r", "x", 2], ["w", "x", 1]]))
 
 
 def walk(a, b, path=""):

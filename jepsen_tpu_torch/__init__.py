@@ -3,7 +3,9 @@
 A package beside `jepsen_tpu` with the same module paths.  It imports
 `torch`, `numpy` and the standard library only — never `jax` and nothing
 of `jepsen_tpu`.  Its entry points (`pad_packed`, `core_check`,
-`core_check_exact`, `detect_cycles`) run on the CUDA card unless the
-caller passes `device="cpu"`.  The two TPU kernels of the list-append
-check are hand-written CUDA C++ for Hopper (`csrc/`), built at first use.
+`core_check_exact`, `detect_cycles`, `list_append.check`,
+`rw_core_check`, `rw_register.check`, `HistoryIR.padded`) run on the CUDA
+card unless the caller passes `device="cpu"`.  The two TPU kernels of the
+Elle checks are hand-written CUDA C++ for Hopper (`csrc/`), built at first
+use.
 """

@@ -1,2 +1,2 @@
-"""Elle-style list-append checking on the device (inference + cycle
-sweep + verdict bits)."""
+"""Elle-style list-append and rw-register checking on the device
+(inference + cycle sweep + verdict bits) and their checker APIs."""

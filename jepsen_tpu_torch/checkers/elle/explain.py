@@ -20,8 +20,8 @@ merged into the reported cycle edge:
 plus a ``"why"`` sentence rendering the evidence.  Lookups are exact
 replays of the inference that created the edge, evaluated lazily on the
 (small) reported cycle only — the device returns witnesses, the host
-explains them (SURVEY.md §7 "Explanations").  `rw_explainer` comes with
-the rw-register checker.
+explains them (SURVEY.md §7 "Explanations").  `la_explainer` serves the
+list-append checker, `rw_explainer` the rw-register checker.
 """
 
 from __future__ import annotations
@@ -142,6 +142,86 @@ def la_explainer(p: PackedTxns, order: Dict[str, np.ndarray]) -> Explainer:
                                     f"{read_desc}, before T{T(b)}'s append "
                                     f"of {_vname(p, succ)!r} (unobserved "
                                     f"successor: anti-dependency)"),
+                        }
+        elif rel in ("process", "proc"):
+            pa = int(p.txn_process[a]) if a < p.n_txns else None
+            return {
+                "process": pa,
+                "why": (f"T{T(a)} and T{T(b)} both ran on process {pa}; "
+                        f"T{T(a)} completed first (program order)"),
+            }
+        elif rel in ("realtime", "rt"):
+            ca = int(p.txn_complete_pos[a]) if a < p.n_txns else None
+            ib = int(p.txn_invoke_pos[b]) if b < p.n_txns else None
+            return {
+                "completed-at": ca, "invoked-at": ib,
+                "why": (f"T{T(a)} completed (event {ca}) before T{T(b)} "
+                        f"invoked (event {ib}): a real-time edge"),
+            }
+        return {}
+
+    return explain
+
+
+def rw_explainer(p: PackedTxns, writer: np.ndarray,
+                 v_src: np.ndarray, v_dst: np.ndarray,
+                 ext_read_txn: np.ndarray,
+                 ext_read_val: np.ndarray) -> Explainer:
+    """Explainer over an rw-register history.
+
+    writer: value id -> writing txn.  (v_src, v_dst): inferred direct
+    version edges (value ids; ids >= V encode the initial state).
+    ext_read_txn/val: external reads (txn, value-id-or-init).
+    """
+    orig = np.asarray(p.txn_orig_index)
+    V = len(writer)
+
+    def T(t: int):
+        return int(orig[t]) if 0 <= t < p.n_txns else t
+
+    def vname(v: int):
+        return _vname(p, v) if v < V else None  # init encodes as None
+
+    def key_of_val(v: int):
+        if 0 <= v < V:
+            return _kname(p, int(p.val_names[int(v)][0]))
+        return None
+
+    def explain(a: int, rel: str, b: int) -> Dict:
+        if rel == "wr":
+            sel = (ext_read_txn == b) & (ext_read_val < V)
+            for v in ext_read_val[sel]:
+                if writer[int(v)] == a:
+                    return {
+                        "key": key_of_val(int(v)), "value": vname(int(v)),
+                        "why": (f"T{T(b)} read {vname(int(v))!r} of key "
+                                f"{key_of_val(int(v))!r}, which T{T(a)} "
+                                f"wrote"),
+                    }
+        elif rel == "ww":
+            for u, v in zip(v_src, v_dst):
+                u, v = int(u), int(v)
+                if u < V and v < V and writer[u] == a and writer[v] == b:
+                    return {
+                        "key": key_of_val(v), "value": vname(u),
+                        "value'": vname(v),
+                        "why": (f"T{T(a)} wrote {vname(u)!r}, which T{T(b)} "
+                                f"overwrote with {vname(v)!r} (key "
+                                f"{key_of_val(v)!r})"),
+                    }
+        elif rel == "rw":
+            for u, v in zip(v_src, v_dst):
+                u, v = int(u), int(v)
+                if v < V and writer[v] == b:
+                    sel = (ext_read_txn == a) & (ext_read_val == u)
+                    if sel.any():
+                        return {
+                            "key": key_of_val(v), "value": vname(u),
+                            "value'": vname(v),
+                            "why": (f"T{T(a)} read {vname(u)!r}, which "
+                                    f"T{T(b)} overwrote with {vname(v)!r} "
+                                    f"(key {key_of_val(v)!r}: "
+                                    f"anti-dependency)"),
                         }
         elif rel in ("process", "proc"):
             pa = int(p.txn_process[a]) if a < p.n_txns else None

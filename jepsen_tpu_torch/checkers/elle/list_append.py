@@ -54,6 +54,7 @@ from jepsen_tpu_torch.checkers.elle.specs import (
     SPEC_ORDER,
 )
 from jepsen_tpu_torch.checkers.elle.txn_cycles import _render_cycle
+from jepsen_tpu_torch.history.ir import HistoryIR
 from jepsen_tpu_torch.history.soa import TXN_OK, PackedTxns, pack_txns
 from jepsen_tpu_torch.ops.cycle_sweep import SweepGraph, detect_cycles
 
@@ -75,7 +76,8 @@ def check(history, consistency_models: Sequence[str] = ("serializable",),
           plan=None, device: backend.DeviceLike = None) -> Dict[str, Any]:
     """Check a list-append history on `device` (the CUDA card unless the
     caller names the CPU; no card raises `backend.NoDeviceError`).
-    Accepts History / op list / PackedTxns.
+    Accepts History / op list / PackedTxns / HistoryIR; an IR's packed
+    and padded sections are built once and reused by every check of it.
 
     `deadline` (a `resilience.Deadline`) is polled between device stages
     and per sweep projection — expiry returns ``{"valid?": "unknown",
@@ -124,15 +126,26 @@ def _check_device(history, consistency_models, anomalies, max_reported,
         return resilience.device_call(site, fn, policy=policy,
                                       deadline=deadline, plan=plan)
 
-    p = history if isinstance(history, PackedTxns) \
-        else pack_txns(history, "list-append")
+    ir = history if isinstance(history, HistoryIR) else None
+    if isinstance(history, PackedTxns):
+        p = history
+    else:
+        p = (ir.packed("list-append") if ir is not None
+             else pack_txns(history, "list-append"))
+    if ir is not None and ir.packed_only:
+        # packed-only IR: downstream consumers (oracle fallback, session
+        # coverage) must see the bare PackedTxns degradation semantics
+        history = p
     if p.n_txns == 0 or not (p.txn_type == TXN_OK).any():
         return {"valid?": "unknown", "anomaly-types": [], "anomalies": {},
                 "not": [], "also-not": []}
 
     poll("elle.infer")
-    out = guarded("elle.infer",
-                  lambda: infer(pad_packed(p, device=dev), p.n_keys))
+    # the IR caches the padded layout per device: repeat checks of one
+    # history skip the pad, and a transient retry of infer never pads again
+    h = ir.padded("list-append", dev) if ir is not None \
+        else pad_packed(p, device=dev)
+    out = guarded("elle.infer", lambda: infer(h, p.n_keys))
 
     found: Dict[str, List[Any]] = {}
     names = list(out["counts"])

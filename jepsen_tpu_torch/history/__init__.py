@@ -1,7 +1,8 @@
 """History substrate (the port's copy of `jepsen_tpu/history`): Op
-records and dense histories (`ops`), and their structure-of-array packing
-for the device (`soa`).  The JAX package's device folds (`fold`) and its
-`HistoryIR` (`ir`) are not ported yet.
+records and dense histories (`ops`), their structure-of-array packing
+for the device (`soa`), and `HistoryIR` (`ir`), which packs and pads a
+history once for every check of it.  The JAX package's device folds
+(`fold`) are not ported yet.
 """
 
 from jepsen_tpu_torch.history.ops import (
@@ -18,6 +19,7 @@ from jepsen_tpu_torch.history.ops import (
     INFO,
 )
 from jepsen_tpu_torch.history.soa import PackedTxns, pack_txns
+from jepsen_tpu_torch.history.ir import HistoryIR
 
 __all__ = [
     "Op",
@@ -33,4 +35,5 @@ __all__ = [
     "INFO",
     "PackedTxns",
     "pack_txns",
+    "HistoryIR",
 ]

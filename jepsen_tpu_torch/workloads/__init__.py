@@ -1,1 +1,2 @@
-"""Synthetic workloads (the port's copy of the packed generator)."""
+"""Synthetic workloads (the port's copy of the packed list-append and
+rw-register generators and the op-level rw-register simulator)."""

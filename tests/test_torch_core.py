@@ -168,6 +168,19 @@ r = list_append.check(h, ["strict-serializable"], device="cpu",
 o = oracle.check(h, ["strict-serializable"])
 assert (r["valid?"], r["anomaly-types"]) == (o["valid?"], o["anomaly-types"])
 assert "G1c" in r["anomaly-types"], r
+from jepsen_tpu_torch.checkers.elle import rw_register
+from jepsen_tpu_torch.history import HistoryIR
+from jepsen_tpu_torch.workloads.synth import packed_rw_history
+ir = HistoryIR.of(h)
+assert list_append.check(ir, ["strict-serializable"], device="cpu",
+                         _force_no_fallback=True) == r
+rw_register.FUSED_MIN_TXNS = 1
+ir = HistoryIR.of(chip_smoke.stale_reads_rw(
+    packed_rw_history(600, n_keys=75, seed=7), 6))
+r = rw_register.check(ir, ["strong-snapshot-isolation"], device="cpu")
+assert r["valid?"] is False and "fused-device" not in r, r
+assert rw_register.check(ir, ["strong-snapshot-isolation"],
+                         use_device=False)["valid?"] is False
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
