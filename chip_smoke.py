@@ -64,11 +64,35 @@ Phases, each asserting; any failure exits non-zero:
         `rw_core_check` on three op histories (one with cyclic versions);
      e. two `list_append.check` calls on one `HistoryIR` of phase 3's
         history: the first pads, the second calls `pad_packed` zero times;
-        both times and the IR's `build_s`.
+        both times and the IR's `build_s`;
+  8. Knossos linearizability (BASELINE config 1, `lin_register_history(
+     n_ops=1000, concurrency=10, seed=0)`: 887 ops, 61 crashed) on the
+     card; `device_wgl` is plain torch and launches neither kernel:
+     a. config 1 through `check_safe(Linearizable(cas_register()))` and
+        `compose` with `Stats`: valid, the winning leg and the wall time
+        (a host leg usually wins the race);
+     b. the same generator without crashed ops (867 ops) through
+        `analysis(algorithm="device")`, the single path over its whole
+        length (one warm-up, three timed calls, one if the warm-up takes
+        over 30 s): valid, its waves, time per call and per wave, peak
+        device memory; the stale-read variant against the host
+        `wgl.check` (and under the profiler: device time and idle share);
+        one wave's compaction timed as JAX writes it (a `scatter_reduce_`)
+        and as the port reads it (`searchsorted`), the same rows;
+        `_frontier_search` alone on 8a's history, which overflows its
+        16,384-row frontier, and the wave at which it did;
+     c. `_blocked_and_check` on a 258-op, 20-process history whose waves
+        pass `HOST_EXPAND_MAX` rows: `_expand_block` calls on the card
+        (more than 0), splits, waves expanded on the host, the verdict
+        against the host `wgl.check`;
+     d. card == CPU: the `device_wgl.check` dict of a 200-op history
+        (`max_frontier` 1024), and the six outputs of 8c's widest
+        `_expand_block` call, bit for bit.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b and each counted call of phase 7, and read just after each; the
-kernels' `launches` are their sum.  The command's total time, the card's
+kernels' `launches` are their sum (phase 8 asserts that it launches
+neither).  The command's total time, the card's
 name and power limit, and a JSON object with one entry per kernel come
 before the last line, `{"ok": true, "device": {...}}`.  Longer output (the
 profiler's tables) goes to `chiprun_out/`.
@@ -112,6 +136,17 @@ N_REPORT = 131_072           # 7c: the first power of two above
 N_REPORT_SMALL = 65_536      # ... and its size when that takes too long
 REPORT_LIMIT_S = 120.0
 N_CMP = 16_384               # 7d: the card == CPU result dicts
+#: 8a/8b: BASELINE config 1, "Knossos :linear checker on single CAS-register
+#: history (1k ops, etcd register test)", as `lin_register_history` builds it
+LIN_KW = dict(n_ops=1000, concurrency=10, seed=0)
+LIN_STALE = 0.01             # 8b: stale-read rate the host WGL rejects
+LIN_WIDE = dict(n_ops=300, concurrency=20, info_prob=0.0, seed=0)  # 8c
+LIN_CMP = dict(n_ops=200, concurrency=10, info_prob=0.0, seed=1)   # 8d
+CMP_FRONTIER = 1024          # 8d: the single path's frontier on both sides
+FRONTIER = 16384             # device_wgl.check's default max_frontier
+ONE_CALL_S = 30.0            # 8b: above this a warm-up, one timed call
+COMPACT_WAVE = 100           # 8b: the stale search's wave whose compaction
+                             # is timed both ways (it runs 137)
 T_START = time.perf_counter()
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
@@ -597,6 +632,10 @@ def main(argv=None) -> int:
     # ---- 7. the rw-register checker and HistoryIR on the card -------------
     check_rw(p, best, launches, dev)
     del p
+    torch.cuda.empty_cache()
+
+    # ---- 8. Knossos linearizability on the card ---------------------------
+    check_knossos(dev)
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -610,7 +649,7 @@ def main(argv=None) -> int:
              launches=launches["seg_or"], max_abs_err=errs["seg_or"],
              **seg_t),
     ]}
-    log(f"[8] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    log(f"[end] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {
@@ -875,23 +914,206 @@ def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
     log(f"[7] launches on the main path, phases 3-4, 6 and 7: {launches}")
 
 
+def check_knossos(dev: torch.device) -> None:
+    """Phase 8: Knossos linearizability on the card (see the module
+    docstring).  Neither kernel runs here: `device_wgl` is plain torch."""
+    from jepsen_tpu_torch.checkers import api, check_safe, compose
+    from jepsen_tpu_torch.checkers.knossos import analysis, device_wgl, wgl
+    from jepsen_tpu_torch.checkers.knossos.memo import memoize
+    from jepsen_tpu_torch.checkers.knossos.prep import prepare
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.workloads.synth import lin_register_history
+
+    t8 = time.perf_counter()
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
+
+    # ---- 8a. config 1 through the checker API ------------------------------
+    h = lin_register_history(**LIN_KW)
+    ops = prepare(h)
+    n_info = sum(o.is_info for o in ops)
+    r, t = wall_s(lambda: check_safe(api.Linearizable(cas_register()), {}, h,
+                                     {}))
+    assert r["valid?"] is True, r
+    log(f"[8a] config 1, lin_register_history({LIN_KW}): {len(ops)} ops, "
+        f"{n_info} crashed; check_safe(Linearizable) valid in {t:.4f} s, "
+        f"won by {r.get('algorithm')}")
+    r, t = wall_s(lambda: check_safe(compose({
+        "linear": api.Linearizable(cas_register()), "stats": api.Stats()}),
+        {}, h, {}))
+    assert r["valid?"] is True and r["linear"]["valid?"] is True, r
+    log(f"[8a] compose(linear, stats) valid in {t:.4f} s, linear won by "
+        f"{r['linear'].get('algorithm')}, stats count {r['stats']['count']}")
+
+    # ---- 8b. config 1 on the card's single path -----------------------------
+    h0 = lin_register_history(**dict(LIN_KW, info_prob=0.0))
+    n0 = len(prepare(h0))
+    search = (("search", device_wgl, "_frontier_search"),)
+    with Split(search, keep=True) as spy:
+        torch.cuda.reset_peak_memory_stats()
+        r, t_warm = wall_s(lambda: analysis(h0, cas_register(),
+                                            algorithm="device"))
+        times = []
+        for _ in range(1 if t_warm > ONE_CALL_S else 3):
+            r, t = wall_s(lambda: analysis(h0, cas_register(),
+                                           algorithm="device"))
+            times.append(t)
+    assert r == {"valid?": True, "op-count": n0, "hash_dedup": True}, r
+    lin, _, over, waves = spy.kept["search"][-1][1]
+    assert lin and not over and spy.calls["search"] == 1 + len(times), \
+        spy.kept
+    best = min(times)
+    log(f"[8b] info_prob=0: {n0} ops, analysis(algorithm='device'), single "
+        f"path: valid, {waves} waves; warm-up {t_warm:.4f} s, timed "
+        f"{', '.join(f'{t:.4f}' for t in times)} s; "
+        f"{best / waves * 1e3:.4f} ms per wave; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+
+    hs = lin_register_history(**dict(LIN_KW, info_prob=0.0,
+                                     stale_read_prob=LIN_STALE))
+    ops_s = prepare(hs)
+    host, t_host = wall_s(lambda: wgl.check(ops_s, cas_register()))
+    assert host["valid?"] is False, host
+    with Split(search, keep=True) as spy:
+        r, t = wall_s(lambda: analysis(hs, cas_register(),
+                                       algorithm="device"))
+    assert r["valid?"] == host["valid?"] and "blocked" not in r, (r, host)
+    _, exhausted, over, waves_s = spy.kept["search"][-1][1]
+    assert exhausted and not over, spy.kept
+    log(f"[8b] stale_read_prob={LIN_STALE}: {len(ops_s)} ops, device "
+        f"{r['valid?']} in {t:.4f} s ({waves_s} waves, the frontier "
+        f"emptied) == host wgl.check {host['valid?']} in {t_host:.4f} s "
+        f"(max-linearized {host['final-info']['max-linearized']})")
+    compaction(device_wgl, lambda: analysis(hs, cas_register(),
+                                            algorithm="device"))
+    profile(8, "the stale single-path search",
+            "chip_smoke_profile_knossos.txt",
+            lambda: analysis(hs, cas_register(), algorithm="device"))
+
+    # 8a's history with its crashed ops: the single path overflows (check
+    # would go on to the blocked search, which has no deadline here)
+    memo = memoize(cas_register(), ops)
+    n_pad, W, *arrays = device_wgl._setup(ops, memo)
+    args = [device_wgl._i32(a, dev) for a in arrays[:4]] + \
+        [device_wgl._i32(memo.table, dev)] + \
+        [device_wgl._i32(a, dev) for a in arrays[4:]]
+    (lin, _, over, waves_o), t = wall_s(
+        lambda: device_wgl._frontier_search(n_pad, W, FRONTIER, len(ops) + 1,
+                                            *args, memo.init_state))
+    assert over and not lin, (lin, over)
+    log(f"[8b] 8a's history ({n_info} crashed ops): _frontier_search "
+        f"overflowed its {FRONTIER}-row frontier at wave {waves_o} in "
+        f"{t:.4f} s ({t / waves_o * 1e3:.4f} ms per wave)")
+
+    # ---- 8c. the blocked search expanding on the card -----------------------
+    hw = lin_register_history(**LIN_WIDE)
+    ops_w = prepare(hw)
+    host, t_host = wall_s(lambda: wgl.check(ops_w, cas_register()))
+    device_wgl.EXPAND_CALLS = device_wgl.SPLITS = device_wgl.HOST_WAVES = 0
+    with Split((("expand", device_wgl, "_expand_block"),), keep=True) as spy:
+        r, t = wall_s(lambda: device_wgl._blocked_and_check(
+            ops_w, cas_register()))
+    calls = (device_wgl.EXPAND_CALLS, device_wgl.SPLITS,
+             device_wgl.HOST_WAVES)
+    assert calls[0] > 0, calls
+    assert r["valid?"] == host["valid?"] and r["blocked"], (r, host)
+    rows = max(args[2] for (args, _), _ in spy.kept["expand"])
+    log(f"[8c] lin_register_history({LIN_WIDE}): {len(ops_w)} ops, "
+        f"_blocked_and_check {r['valid?']} in {t:.4f} s == host wgl.check "
+        f"in {t_host:.4f} s; _expand_block calls {calls[0]} (blocks of up "
+        f"to {rows} rows), splits {calls[1]}, waves expanded on the host "
+        f"{calls[2]}")
+
+    # ---- 8d. card == CPU ----------------------------------------------------
+    hc = lin_register_history(**LIN_CMP)
+    ops_c = prepare(hc)
+    want, t_cpu = wall_s(lambda: device_wgl.check(
+        ops_c, cas_register(), max_frontier=CMP_FRONTIER, device="cpu"))
+    got, t_card = wall_s(lambda: device_wgl.check(
+        ops_c, cas_register(), max_frontier=CMP_FRONTIER, device=dev))
+    assert got == want, (got, want)
+    log(f"[8d] lin_register_history({LIN_CMP}): device_wgl.check, "
+        f"max_frontier {CMP_FRONTIER}: {got} on the card ({t_card:.4f} s) "
+        f"and the CPU ({t_cpu:.4f} s)")
+    (a, kw), out = max(spy.kept["expand"], key=lambda c: c[0][0][2])
+    out_cpu = device_wgl._expand_block(
+        *(x.cpu() if torch.is_tensor(x) else x for x in a), **kw)
+    for name, g, c in zip(("states", "bits", "h1", "h2", "valid",
+                           "n_unique"), out, out_cpu):
+        assert g.dtype == c.dtype and torch.equal(g.cpu(), c), name
+    log(f"[8d] one _expand_block call of 8c (A={a[0]}, W={a[1]}, F={a[2]}, "
+        f"C={a[3]}, {int(out[5])} unique children): all 6 outputs equal bit "
+        f"for bit on the card and the CPU")
+    n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    assert n == {"locf": 0, "seg_or": 0}, n
+    log(f"[8] launches of either kernel in phase 8: {n}; phase 8 took "
+        f"{time.perf_counter() - t8:.1f} s")
+
+
+def compaction(device_wgl, search) -> None:
+    """JAX's compaction as written, `.at[tgt].max(arange)` as one
+    `scatter_reduce_` onto F + 1 rows with every dropped child aimed at
+    the last, against the port's `searchsorted` read (`_compact`), on the
+    inputs of wave `COMPACT_WAVE` of `search()`: the same rows, and the
+    time of each."""
+    compact, seen = device_wgl._compact, []
+
+    def grab(order, keep, cap):
+        seen.append((order, keep, cap) if len(seen) == COMPACT_WAVE else None)
+        return compact(order, keep, cap)
+
+    device_wgl._compact = grab
+    try:
+        search()
+    finally:
+        device_wgl._compact = compact
+    order, keep, cap = seen[COMPACT_WAVE]
+    N = keep.numel()
+
+    def scatter():
+        kidx = torch.cumsum(keep, 0) - 1
+        tgt = torch.where(keep & (kidx < cap), kidx, cap)
+        take = torch.full((cap + 1,), -1, dtype=torch.int64,
+                          device=keep.device)
+        take.scatter_reduce_(0, tgt, torch.arange(N, device=keep.device),
+                             "amax", include_self=True)
+        take = take[:cap]
+        valid = take >= 0
+        return valid, order[take.clamp(0, N - 1)]
+
+    for a, b in zip(scatter(), compact(order, keep, cap)):
+        assert torch.equal(a, b)
+    t_scatter = call_ms(scatter, reps=3)
+    t_sorted = call_ms(lambda: compact(order, keep, cap))
+    log(f"[8b] compaction of wave {COMPACT_WAVE} ({N} children, "
+        f"{int(keep.sum())} kept, {cap} rows), same rows both ways: JAX's "
+        f".at[tgt].max(arange) as scatter_reduce_ {t_scatter:.4f} ms, "
+        f"searchsorted (_compact) {t_sorted:.4f} ms")
+
+
 class Split:
     """Wall time of a call by stage.  `stages` is a sequence of (stage,
     module, function name); while active, each named function is replaced
     by a timer around it that synchronizes the card before each clock
-    read.  The host classification is the sum of the stages "bfs",
-    "find_cycle" and "render" where they are timed."""
+    read.  With `keep`, each call's arguments and result are kept in
+    `kept[stage]` as ((args, kwargs), out).  The host classification is
+    the sum of the stages "bfs", "find_cycle" and "render" where they are
+    timed."""
 
     HOST = ("bfs", "find_cycle", "render")
 
-    def __init__(self, stages):
+    def __init__(self, stages, keep: bool = False):
         self.stages = stages
+        self.keep = keep
         self.s = {}
         self.calls = {}
+        self.kept = {}
 
     def __enter__(self):
         self.s = dict.fromkeys((stage for stage, _, _ in self.stages), 0.0)
         self.calls = dict.fromkeys(self.s, 0)
+        self.kept = {stage: [] for stage in self.s}
         self.saved = []
         for stage, module, fname in self.stages:
             fn = getattr(module, fname)
@@ -907,6 +1129,8 @@ class Split:
             torch.cuda.synchronize()
             self.s[stage] += time.perf_counter() - t0
             self.calls[stage] += 1
+            if self.keep:
+                self.kept[stage].append(((args, kw), out))
             return out
         return run
 
@@ -1027,18 +1251,28 @@ def profile(phase: int, what: str, fname: str, fn) -> dict[str, int]:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from torch.autograd import DeviceType
+
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(table)
+    # the table's "Self CUDA time total": kernel time, summed
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user", False)) / 1e6
     log(f"[{phase}] profiled {what}, top device time:")
     log("\n".join(table.splitlines()[:18]))
-    return {e.key: e.count for e in prof.key_averages()}
+    log(f"[{phase}] device time {busy:.4f} s of {wall:.4f} s wall under the "
+        f"profiler: the card idles {100 * (1 - busy / wall):.1f}% of it")
+    return {e.key: e.count for e in events}
 
 
 if __name__ == "__main__":

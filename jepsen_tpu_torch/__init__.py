@@ -4,8 +4,10 @@ A package beside `jepsen_tpu` with the same module paths.  It imports
 `torch`, `numpy` and the standard library only — never `jax` and nothing
 of `jepsen_tpu`.  Its entry points (`pad_packed`, `core_check`,
 `core_check_exact`, `detect_cycles`, `list_append.check`,
-`rw_core_check`, `rw_register.check`, `HistoryIR.padded`) run on the CUDA
-card unless the caller passes `device="cpu"`.  The two TPU kernels of the
-Elle checks are hand-written CUDA C++ for Hopper (`csrc/`), built at first
-use.
+`rw_core_check`, `rw_register.check`, `HistoryIR.padded`, the Knossos
+`device_wgl.check` and `analysis`, and the checker API's `Linearizable`
+and `QueueChecker`) run on the CUDA card unless the caller passes
+`device="cpu"`.  The two TPU kernels of the Elle checks are hand-written
+CUDA C++ for Hopper (`csrc/`), built at first use; the Knossos search on
+the card is plain torch (the JAX package has no Pallas kernel there).
 """

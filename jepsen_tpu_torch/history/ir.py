@@ -8,7 +8,9 @@ that also memoizes
   txn/mop/read-element columns), and
 - the padded device layout (``PaddedLA``), with its static capacity
   facts and pad-time derived-order columns, per (workload, device): a
-  padded layout on the card and one on the CPU are different objects.
+  padded layout on the card and one on the CPU are different objects;
+- the Knossos entry table (`lin_ops`, `knossos.prep.prepare`'s LinOp
+  rows), which `knossos.analysis` takes from an IR it is handed.
 
 A checker that is handed an IR (`list_append.check`, `rw_register.check`,
 `device_rw.check`) takes both from it, so repeat checks of one history pay
@@ -18,14 +20,14 @@ and pair index, so every consumer that only needs a History keeps working.
 The JAX package books each section's build time into its telemetry spans;
 the port has no telemetry module, so the build times stay on the IR as a
 plain dict, :attr:`HistoryIR.build_s`.  The JAX sections whose consumers
-are not ported yet (`rw_inference`, `bank`, `queue`, `lin_ops`,
-`bucket_class`) are left out.
+are not ported yet (`rw_inference`, `bank`, `queue`, `bucket_class`) are
+left out.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +59,7 @@ class HistoryIR(History):
         self._packed: Dict[str, PackedTxns] = {}
         self._padded: Dict[Tuple[str, torch.device], Any] = {}
         self._packed_source = None
+        self._lin_ops: Optional[List[Any]] = None
         #: seconds each section's build took, by section name (memoized
         #: hits add nothing)
         self.build_s: Dict[str, float] = {}
@@ -127,6 +130,14 @@ class HistoryIR(History):
                 f"padded:{workload}:{dev}",
                 lambda: device_infer.pad_packed(packed, device=dev))
         return h
+
+    def lin_ops(self) -> List[Any]:
+        """The knossos linearizability entry table (LinOp rows)."""
+        if self._lin_ops is None:
+            from jepsen_tpu_torch.checkers.knossos.prep import prepare
+
+            self._lin_ops = self._booked("lin_ops", lambda: prepare(self))
+        return self._lin_ops
 
     def layout(self, device: backend.DeviceLike = None) -> Dict[str, Any]:
         """The versioned layout summary of the padded list-append view on

@@ -17,8 +17,8 @@ checker (elle infer, the cycle sweeps):
 Retries and fallbacks are logged on the ``jepsen.resilience`` logger.
 The JAX package's telemetry counters, span annotations and compile-cost
 stamps are not carried over (the port has no telemetry module yet), nor
-is its `with_fallback`, whose callers (the checker API wrappers) the
-port does not have yet.
+is its `with_fallback`, whose callers (the invariant and queue checkers)
+the port does not have yet.
 """
 
 from __future__ import annotations

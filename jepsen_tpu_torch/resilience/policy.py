@@ -9,9 +9,10 @@ Counterpart of `jepsen_tpu/resilience/policy.py`:
 
 - :class:`Deadline` — a cooperative wall-clock budget that long loops
   poll (`expired()`/`check()`); expiry surfaces as
-  :class:`DeadlineExceeded`, which the checkers turn into
-  ``{"valid?": "unknown", "error": "deadline-exceeded"}`` instead of an
-  unbounded hang.
+  :class:`DeadlineExceeded`, which the checkers and
+  `checkers.api.check_safe` turn into ``{"valid?": "unknown", "error":
+  "deadline-exceeded"}`` instead of an unbounded hang;
+  :meth:`Deadline.resolve` reads one from a check's opts or test map.
 
 The JAX package's telemetry counters on deadline expiry are not carried
 over (the port has no telemetry module yet).
@@ -55,6 +56,23 @@ class Deadline:
     def __init__(self, seconds: Optional[float] = None):
         self.t_end = (time.monotonic() + float(seconds)
                       if seconds is not None else None)
+
+    @classmethod
+    def resolve(cls, opts: Optional[dict], test: Optional[dict] = None
+                ) -> Optional["Deadline"]:
+        """The one rule for where a checker deadline comes from: an
+        already-created ``opts["deadline"]`` (shared by composed
+        checkers), else ``opts["time-limit"]`` (per-check opt), else
+        the test map's ``"checker-time-limit"``.  None when unbounded.
+        """
+        opts = opts or {}
+        dl = opts.get("deadline")
+        if isinstance(dl, Deadline):
+            return dl
+        limit = opts.get("time-limit")
+        if limit is None:
+            limit = (test or {}).get("checker-time-limit")
+        return cls(float(limit)) if limit is not None else None
 
     def remaining(self) -> Optional[float]:
         """Seconds left, clamped at 0; None when unbounded."""

@@ -4,12 +4,14 @@
 `packed_la_history` and `packed_rw_history` are copies of the vectorized
 generators: they emit `PackedTxns` arrays directly, the bench path for
 histories too large to build as Python Op objects.  `rw_history` is the
-op-level rw-register simulator.  Tests pin each equal to the original.
+op-level rw-register simulator, and `lin_register_history` the
+linearizable r/w/cas register simulator of the Knossos tests (BASELINE
+config 1).  Tests pin each equal to the original.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -264,4 +266,70 @@ def rw_history(n_txns: int = 100, n_keys: int = 5, concurrency: int = 5,
             ops.append(Op(type=INFO, process=p, f="txn", value=None))
         else:
             ops.append(Op(type=OK, process=p, f="txn", value=filled))
+    return History(ops)
+
+
+def lin_register_history(n_ops: int = 50, concurrency: int = 3,
+                         stale_read_prob: float = 0.0,
+                         info_prob: float = 0.05,
+                         cas_prob: float = 0.2,
+                         seed: int = 0) -> History:
+    """Simulate a linearizable r/w/cas register; optionally inject stale
+    reads (which make the history non-linearizable w.h.p.)."""
+    rng = np.random.default_rng(seed)
+    ops: List[Op] = []
+    value = None        # current register value
+    history_vals = [None]  # all past values (for stale reads)
+    open_p: Dict[int, Tuple[str, object]] = {}
+    done = 0
+    while done < n_ops or open_p:
+        p = int(rng.integers(0, concurrency))
+        if p not in open_p:
+            if done + len(open_p) >= n_ops:
+                if not open_p:
+                    break
+                p = list(open_p.keys())[int(rng.integers(0, len(open_p)))]
+            else:
+                r = rng.random()
+                if r < cas_prob:
+                    f, v = "cas", [value if value is not None and
+                                   rng.random() < 0.7
+                                   else int(rng.integers(0, 5)),
+                                   int(rng.integers(0, 5))]
+                elif r < 0.6:
+                    f, v = "write", int(rng.integers(0, 5))
+                else:
+                    f, v = "read", None
+                ops.append(Op(type=INVOKE, process=p, f=f, value=v))
+                open_p[p] = (f, v)
+                continue
+        f, v = open_p.pop(p)
+        done += 1
+        if rng.random() < info_prob:
+            # crashed: effect applied with probability 1/2
+            if f == "write" and rng.random() < 0.5:
+                value = v
+                history_vals.append(value)
+            elif f == "cas" and value == v[0] and rng.random() < 0.5:
+                value = v[1]
+                history_vals.append(value)
+            ops.append(Op(type=INFO, process=p, f=f, value=v))
+            continue
+        if f == "write":
+            value = v
+            history_vals.append(value)
+            ops.append(Op(type=OK, process=p, f=f, value=v))
+        elif f == "cas":
+            if value == v[0]:
+                value = v[1]
+                history_vals.append(value)
+                ops.append(Op(type=OK, process=p, f=f, value=v))
+            else:
+                ops.append(Op(type=FAIL, process=p, f=f, value=v))
+        else:  # read
+            rv = value
+            if stale_read_prob and rng.random() < stale_read_prob \
+                    and len(history_vals) > 1:
+                rv = history_vals[int(rng.integers(0, len(history_vals) - 1))]
+            ops.append(Op(type=OK, process=p, f=f, value=rv))
     return History(ops)

@@ -181,6 +181,18 @@ r = rw_register.check(ir, ["strong-snapshot-isolation"], device="cpu")
 assert r["valid?"] is False and "fused-device" not in r, r
 assert rw_register.check(ir, ["strong-snapshot-isolation"],
                          use_device=False)["valid?"] is False
+from jepsen_tpu_torch.checkers import api, check_safe, compose
+from jepsen_tpu_torch.checkers.knossos import analysis
+from jepsen_tpu_torch.models import cas_register
+from jepsen_tpu_torch.workloads.synth import lin_register_history
+lh = lin_register_history(n_ops=40, concurrency=3, seed=0)
+for alg in ("auto", "wgl", "linear", "device"):
+    kw = {"max_frontier": 256} if alg in ("auto", "device") else {}
+    r = analysis(lh, cas_register(), algorithm=alg, device="cpu", **kw)
+    assert r["valid?"] is True, (alg, r)
+r = check_safe(compose({"linear": api.Linearizable(device="cpu"),
+                        "stats": api.Stats()}), {}, lh, {})
+assert r["valid?"] is True and r["linear"]["valid?"] is True, r
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
