@@ -70,7 +70,11 @@ Phases, each asserting; any failure exits non-zero:
      card; `device_wgl` is plain torch and launches neither kernel:
      a. config 1 through `check_safe(Linearizable(cas_register()))` and
         `compose` with `Stats`: valid, the winning leg and the wall time
-        (a host leg usually wins the race);
+        (a host leg usually wins the race), and the native C++ search
+        called (`native.CALLS` > 0); `wgl.check` alone on the native
+        search and on the Python one (`JT_NO_NATIVE=1`), the same verdict,
+        both times; and 7c's time, whose host inference runs the native
+        Tarjan;
      b. the same generator without crashed ops (867 ops) through
         `analysis(algorithm="device")`, the single path over its whole
         length (one warm-up, three timed calls, one if the warm-up takes
@@ -87,15 +91,41 @@ Phases, each asserting; any failure exits non-zero:
         against the host `wgl.check`;
      d. card == CPU: the `device_wgl.check` dict of a 200-op history
         (`max_frontier` 1024), and the six outputs of 8c's widest
-        `_expand_block` call, bit for bit.
+        `_expand_block` call, bit for bit;
+  9. the invariants checkers and the closed predicate on the card, on
+     corpora made by copies of `tests/test_invariants.py`'s generators.
+     Each of a-d runs one warm-up and three timed calls (one above 5 s) on
+     one `HistoryIR`, so that only the warm-up packs and infers, and
+     prints the times, the pack and `infer_rw` builds, the device part
+     (`with_fallback`'s call) and the sweeps per timed call, and peak
+     device memory; each injected corpus runs once; every verdict and anomaly
+     set is the host twin's (`use_device=False`):
+     a. bank, `jepsen.tests.bank`'s defaults (8 accounts, total 100,
+        transfers of at most 5), 200,000 ops: valid, and each of the
+        wrong-total and negative-balance injections; then a `PackedBank`
+        of 1,000,000 reads x 8 accounts (64 MB int64), valid and with
+        both anomalies;
+     b. long fork, `lf_history(groups=256, group_size=4, n_reads=50,000)`
+        (1,024 keys): valid and `inject_long_fork`;
+     c. write skew, `ws_history(pairs=512, n_txns=100,000)`: valid and
+        `inject_write_skew`;
+     d. session, `sess_history(n_keys=64, n_txns=100,000)` with pinned
+        keys and without: valid and `inject_session_break`, two LOCF
+        launches per check; `predicate.check` on the same `HistoryIR`,
+        `infer_rw` run once for both;
+     e. the seven closed-predicate histories of
+        `tests/test_closed_predicate.py`;
+     f. card == CPU: the whole result dict of a-e, at full size where the
+        CPU run takes seconds and at 20,000 txns for the injected write
+        skew and the unpinned session.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
-6a and 6b and each counted call of phase 7, and read just after each; the
-kernels' `launches` are their sum (phase 8 asserts that it launches
-neither).  The command's total time, the card's
-name and power limit, and a JSON object with one entry per kernel come
-before the last line, `{"ok": true, "device": {...}}`.  Longer output (the
-profiler's tables) goes to `chiprun_out/`.
+6a and 6b, each counted call of phase 7 and each check on the card of
+phase 9, and read just after each; the kernels' `launches` are their sum
+(phase 8 asserts that it launches neither).  The command's total time,
+the card's name and power limit, and a JSON object with one entry per
+kernel come before the last line, `{"ok": true, "device": {...}}`.
+Longer output (the profiler's tables) goes to `chiprun_out/`.
 
 Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
 """
@@ -147,6 +177,17 @@ FRONTIER = 16384             # device_wgl.check's default max_frontier
 ONE_CALL_S = 30.0            # 8b: above this a warm-up, one timed call
 COMPACT_WAVE = 100           # 8b: the stale search's wave whose compaction
                              # is timed both ways (it runs 137)
+#: 9a: jepsen.tests.bank's defaults: 8 accounts holding 100 in all (12 or
+#: 13 each), transfers of at most 5; 200,000 ops give about 100,000 reads
+BANK_KW = dict(n_ops=200_000, n_accounts=8, balance=[13] * 4 + [12] * 4,
+               seed=0, max_transfer=5)
+BANK_TEST = {"total-amount": 100}
+N_BANK_READS = 1_000_000     # 9a: the reduction at scale, a PackedBank
+LF_KW = dict(groups=256, group_size=4, n_reads=50_000, seed=0)     # 9b
+WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
+SESS_KW = dict(n_keys=64, n_txns=100_000, seed=0)                  # 9d
+N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
+INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
 T_START = time.perf_counter()
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
@@ -630,12 +671,15 @@ def main(argv=None) -> int:
     check_api(p, best, launches)
 
     # ---- 7. the rw-register checker and HistoryIR on the card -------------
-    check_rw(p, best, launches, dev)
+    t7c = check_rw(p, best, launches, dev)
     del p
     torch.cuda.empty_cache()
 
     # ---- 8. Knossos linearizability on the card ---------------------------
-    check_knossos(dev)
+    check_knossos(dev, t7c)
+
+    # ---- 9. the invariants and the closed predicate on the card -----------
+    check_invariants(dev, launches)
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -848,6 +892,7 @@ def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
     assert family, r["anomaly-types"]
     n_cycles = explained_cycles(r)
     assert n["seg_or"] > 0, n
+    t7c = t
     rest = t - sum(split.s.values())
     log(f"[7c] rw_register.check, {n_report} txns with {N_STALE} stale "
         f"reads, {'+'.join(STALE_MODELS)}: {t:.4f} s ({split}; host "
@@ -912,11 +957,14 @@ def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
         f"without (pad_packed calls {[c for _, c in times]}); build_s "
         f"{ir.build_s}")
     log(f"[7] launches on the main path, phases 3-4, 6 and 7: {launches}")
+    return t7c
 
 
-def check_knossos(dev: torch.device) -> None:
+def check_knossos(dev: torch.device, t7c: float) -> None:
     """Phase 8: Knossos linearizability on the card (see the module
-    docstring).  Neither kernel runs here: `device_wgl` is plain torch."""
+    docstring).  Neither kernel runs here: `device_wgl` is plain torch.
+    `t7c` is 7c's time, whose host inference runs the native Tarjan."""
+    from jepsen_tpu_torch import native
     from jepsen_tpu_torch.checkers import api, check_safe, compose
     from jepsen_tpu_torch.checkers.knossos import analysis, device_wgl, wgl
     from jepsen_tpu_torch.checkers.knossos.memo import memoize
@@ -933,12 +981,24 @@ def check_knossos(dev: torch.device) -> None:
     h = lin_register_history(**LIN_KW)
     ops = prepare(h)
     n_info = sum(o.is_info for o in ops)
+    native.CALLS = 0
     r, t = wall_s(lambda: check_safe(api.Linearizable(cas_register()), {}, h,
                                      {}))
     assert r["valid?"] is True, r
+    assert native.CALLS > 0, "the race ran no native search"
     log(f"[8a] config 1, lin_register_history({LIN_KW}): {len(ops)} ops, "
         f"{n_info} crashed; check_safe(Linearizable) valid in {t:.4f} s, "
-        f"won by {r.get('algorithm')}")
+        f"won by {r.get('algorithm')}; native calls {native.CALLS}")
+    r_nat, t_nat = wall_s(lambda: wgl.check(ops, cas_register()))
+    os.environ["JT_NO_NATIVE"] = "1"
+    try:
+        r_py, t_py = wall_s(lambda: wgl.check(ops, cas_register()))
+    finally:
+        del os.environ["JT_NO_NATIVE"]
+    assert r_nat == r_py and r_nat["valid?"] is True, (r_nat, r_py)
+    log(f"[8a] wgl.check alone: native {t_nat:.4f} s, Python search "
+        f"(JT_NO_NATIVE=1) {t_py:.4f} s, the same verdict; 7c's rw report, "
+        f"whose host inference runs the native Tarjan, took {t7c:.4f} s")
     r, t = wall_s(lambda: check_safe(compose({
         "linear": api.Linearizable(cas_register()), "stats": api.Stats()}),
         {}, h, {}))
@@ -1049,6 +1109,258 @@ def check_knossos(dev: torch.device) -> None:
     assert n == {"locf": 0, "seg_or": 0}, n
     log(f"[8] launches of either kernel in phase 8: {n}; phase 8 took "
         f"{time.perf_counter() - t8:.1f} s")
+
+
+def check_invariants(dev: torch.device, launches: dict) -> None:
+    """Phase 9: the invariants checkers and the closed predicate on the
+    card (see the module docstring).  The counters are set to 0 just
+    before each check on the card and read just after; the sums go into
+    the main path's `launches`."""
+    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch.checkers.elle import closed_predicate, txn_cycles
+    from jepsen_tpu_torch.checkers.invariants import (
+        bank,
+        packed,
+        predicate,
+        session,
+    )
+    from jepsen_tpu_torch.history.ir import HistoryIR
+    from jepsen_tpu_torch.ops import fill, scan
+
+    t9 = time.perf_counter()
+    n9 = {"locf": 0, "seg_or": 0}
+    rw_sections = ["packed:rw-register", "rw_inference"]
+
+    def counted(fn):
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        out, t = wall_s(fn)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in n9:
+            n9[kname] += n[kname]
+        return out, t, n
+
+    def cell(tag, what, check, ir, sections):
+        """One warm-up and three timed calls of `check(ir, device=dev)`
+        (one timed call when the warm-up takes over INV_ONE_CALL_S) on one
+        IR, so that the timed calls pack and infer nothing; logs the times,
+        the IR's section builds, the device part and the sweeps per timed
+        call, the launches per call and peak device memory."""
+        split = Split((("device part", resilience, "with_fallback"),
+                       ("sweeps", txn_cycles, "_cycle_regions")))
+        torch.cuda.reset_peak_memory_stats()
+        r, t_warm, n = counted(lambda: check(ir, device=dev))
+        times = []
+        with split:
+            for _ in range(1 if t_warm > INV_ONE_CALL_S else 3):
+                r2, t, n2 = counted(lambda: check(ir, device=dev))
+                assert r2 == r and n2 == n, (r2, r, n2, n)
+                times.append(t)
+        builds = ", ".join(f"{k} {ir.build_s[k]:.4f} s" for k in sections)
+        per = ", ".join(f"{k} {v / len(times):.4f} s"
+                        for k, v in split.s.items())
+        log(f"[9{tag}] {what}: valid? {r['valid?']} {r['anomaly-types']}; "
+            f"warm-up {t_warm:.4f} s, timed "
+            f"{', '.join(f'{x:.4f}' for x in times)} s; built once: "
+            f"{builds or 'nothing'}; per timed call: {per}; launches per "
+            f"call {n}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+        return r, n
+
+    def once(tag, what, check, ir, want_types):
+        """One check on the card, held to the host twin's verdict and
+        anomaly types (the twin may render other witness cycles)."""
+        r, t, n = counted(lambda: check(ir, device=dev))
+        host, t_host = wall_s(lambda: check(ir, use_device=False))
+        assert r["valid?"] is False and want_types <= set(
+            r["anomaly-types"]), r["anomaly-types"]
+        assert (host["valid?"], host["anomaly-types"]) == \
+            (r["valid?"], r["anomaly-types"]), (host, r)
+        log(f"[9{tag}] {what}: valid? {r['valid?']} {r['anomaly-types']} in "
+            f"{t:.4f} s (launches {n}) == host twin in {t_host:.4f} s")
+        return r, n
+
+    def twin(tag, what, check, ir, r):
+        host, t_host = wall_s(lambda: check(ir, use_device=False))
+        assert (host["valid?"], host["anomaly-types"]) == \
+            (r["valid?"], r["anomaly-types"]), (host, r)
+        log(f"[9{tag}] {what}: the host twin (use_device=False) agrees in "
+            f"{t_host:.4f} s")
+
+    def card_cpu(what, check, ir, got=None):
+        """The whole dict of `check` on the card (`got`, or one call now)
+        against the same check on the CPU."""
+        card = "above"
+        if got is None:
+            got, t_card, _ = counted(lambda: check(ir, device=dev))
+            card = f"{t_card:.4f} s"
+        want, t_cpu = wall_s(lambda: check(ir, device="cpu"))
+        assert got == want, (got, want)
+        log(f"[9f] {what}: the whole dict equal on the card ({card}) and "
+            f"the CPU ({t_cpu:.4f} s)")
+
+    # ---- 9a. bank -----------------------------------------------------------
+    def bcheck(h, **kw):
+        return bank.check(h, BANK_TEST, **kw)
+
+    t0 = time.perf_counter()
+    hb = bank_history(**BANK_KW)
+    log(f"[9a] bank_history({BANK_KW}): {len(hb.ops)} ops in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ir = HistoryIR(hb)
+    r, _ = cell("a", "bank, valid", bcheck, ir, ["bank"])
+    assert r["valid?"] is True and \
+        r["read-count"] > 0.45 * BANK_KW["n_ops"], r
+    assert bcheck(ir, use_device=False) == r
+    card_cpu("9a bank, valid", bcheck, ir, r)
+    saved = [(op, dict(op.value)) for op in hb.ops
+             if op.f == "read" and isinstance(op.value, dict)]
+    for inject, anomaly in ((inject_bank_wrong_total, bank.WRONG_TOTAL),
+                            (inject_bank_negative, bank.NEGATIVE)):
+        inject(hb, 0)
+        ir = HistoryIR(hb)
+        r, _ = once("a", f"bank, {inject.__name__}", bcheck, ir, {anomaly})
+        assert r["anomaly-types"] == [anomaly] and \
+            bcheck(ir, use_device=False) == r, r
+        card_cpu(f"9a bank, {inject.__name__}", bcheck, ir, r)
+        for op, v in saved:
+            op.value.clear()
+            op.value.update(v)
+    # the reduction at scale: 1M reads x 8 accounts, int64 (64 MB)
+    rng = np.random.default_rng(0)
+    bal = rng.multinomial(100, [1 / 8] * 8, size=N_BANK_READS)
+    bal = bal.astype(np.int64)
+    idx = np.arange(N_BANK_READS, dtype=np.int64)
+    none = np.zeros(0, np.int64)
+    pb = packed.PackedBank(
+        accounts=list(range(8)), balances=bal, read_op_index=idx,
+        read_process=idx % 10, tr_type=np.zeros(0, np.int8), tr_from=none,
+        tr_to=none, tr_amount=none, tr_op_index=none)
+    r, _ = cell("a", f"PackedBank of {N_BANK_READS} reads x 8 accounts "
+                f"({bal.nbytes} B), valid", bcheck, pb, [])
+    assert r["valid?"] is True and bcheck(pb, use_device=False) == r, r
+    wrong, neg = N_BANK_READS // 8, N_BANK_READS * 5 // 8
+    bal[wrong, 0] += 3
+    shift = bal[neg, 0] + 5
+    bal[neg, 0] -= shift
+    bal[neg, 1] += shift
+    r, _ = once("a", "the PackedBank with a wrong total and a negative "
+                "balance", bcheck, pb, {bank.WRONG_TOTAL, bank.NEGATIVE})
+    assert bcheck(pb, use_device=False) == r == bcheck(pb, device="cpu"), r
+    log(f"[9f] the PackedBank's whole dict equal on the card, the CPU and "
+        f"the host twin")
+    del hb, ir, saved, bal, pb
+
+    # ---- 9b. long fork ------------------------------------------------------
+    t0 = time.perf_counter()
+    h = lf_history(**LF_KW)
+    ir = HistoryIR(h)
+    log(f"[9b] lf_history({LF_KW}): {len(h.ops)} ops in "
+        f"{time.perf_counter() - t0:.2f} s")
+    r, _ = cell("b", "long fork, valid", predicate.check, ir, rw_sections)
+    assert r["valid?"] is True and r["read-count"] == LF_KW["n_reads"], r
+    twin("b", "long fork, valid", predicate.check, ir, r)
+    card_cpu("9b long fork, valid", predicate.check, ir, r)
+    inject_long_fork(h)
+    ir = HistoryIR(h)
+    r, _ = once("b", "long fork, inject_long_fork", predicate.check, ir,
+                {predicate.LONG_FORK})
+    card_cpu("9b long fork, inject_long_fork", predicate.check, ir, r)
+    del h, ir
+
+    # ---- 9c. write skew -----------------------------------------------------
+    t0 = time.perf_counter()
+    h = ws_history(**WS_KW)
+    ir = HistoryIR(h)
+    log(f"[9c] ws_history({WS_KW}): {len(h.ops)} ops in "
+        f"{time.perf_counter() - t0:.2f} s")
+    r, _ = cell("c", "write skew, valid", predicate.check, ir, rw_sections)
+    assert r["valid?"] is True, r
+    twin("c", "write skew, valid", predicate.check, ir, r)
+    card_cpu("9c write skew, valid", predicate.check, ir, r)
+    inject_write_skew(h)
+    r, _ = once("c", "write skew, inject_write_skew", predicate.check,
+                HistoryIR(h), {predicate.WRITE_SKEW})
+    assert any("why" in e for name in r["anomaly-types"]
+               for rep in r["anomalies"][name] for e in rep.get("cycle", ())
+               ), r
+    hc = inject_write_skew(ws_history(**dict(WS_KW, n_txns=N_INV_CMP)))
+    card_cpu(f"9c write skew at {N_INV_CMP} txns, inject_write_skew",
+             predicate.check, HistoryIR(hc))
+    del h, ir, hc
+
+    # ---- 9d. session --------------------------------------------------------
+    locf0 = n9["locf"]
+    for pin in (True, False):
+        what = f"session, {'pinned keys, ' if pin else ''}"
+        t0 = time.perf_counter()
+        h = sess_history(**SESS_KW, pin_keys=pin)
+        ir = HistoryIR(h)
+        log(f"[9d] sess_history({SESS_KW}, pin_keys={pin}): {len(h.ops)} "
+            f"ops in {time.perf_counter() - t0:.2f} s")
+        with Split((("infer_rw", packed, "infer_rw"),)) as builds:
+            r, n = cell("d", what + "valid", session.check, ir, rw_sections)
+            assert r["valid?"] is True and "fallback" not in r, r
+            assert n == {"locf": 2, "seg_or": 0}, n
+            if not pin:
+                rp, t, _ = counted(lambda: predicate.check(ir, device=dev))
+                assert rp["valid?"] is True, rp
+        assert builds.calls["infer_rw"] == 1, builds.calls
+        if not pin:
+            log(f"[9d] predicate.check on the same HistoryIR: valid in "
+                f"{t:.4f} s; infer_rw ran {builds.calls['infer_rw']} time "
+                f"for both checkers ({r['events']} session events)")
+        twin("d", what + "valid", session.check, ir, r)
+        if pin:
+            card_cpu("9d " + what + "valid", session.check, ir, r)
+            # the kernel against its plain version on the inputs the
+            # masks give it (launches outside `counted` are not counted)
+            ev = session._session_events(ir.packed("rw-register"),
+                                         ir.rw_inference())
+            w = torch.from_numpy(ev[2]).to(dev)
+            pos1 = torch.arange(1, len(w) + 1, dtype=torch.int32,
+                                device=dev)
+            for match in (~w, w):
+                x = torch.where(match, pos1, 0) - 1
+                assert torch.equal(fill.locf_cuda(x), fill.locf_plain(x))
+            log(f"[9d] LOCF on the session masks' inputs ({len(w)} int32 "
+                f"events, reads and writes): kernel == plain version, bit "
+                f"for bit, on the card")
+        inject_session_break(h)
+        r, n = once("d", what + "inject_session_break", session.check,
+                    HistoryIR(h), {"monotonic-reads-violation"})
+        assert n == {"locf": 2, "seg_or": 0}, n
+        del h, ir
+    hc = sess_history(**dict(SESS_KW, n_txns=N_INV_CMP))
+    card_cpu(f"9d session at {N_INV_CMP} txns, valid", session.check,
+             HistoryIR(hc))
+    card_cpu(f"9d session at {N_INV_CMP} txns, inject_session_break",
+             session.check, HistoryIR(inject_session_break(hc)))
+    locf_d = n9["locf"] - locf0
+    assert locf_d > 0, n9
+    log(f"[9d] LOCF launches in 9d: {locf_d}, two per session check on "
+        f"the card")
+
+    # ---- 9e. the closed predicate -------------------------------------------
+    verdicts = []
+    for name, h, models, valid in closed_predicate_histories():
+        r, _, n = counted(lambda: closed_predicate.check(h, models,
+                                                        device=dev))
+        assert r["valid?"] is valid, (name, r)
+        assert closed_predicate.check(h, models, device="cpu") == r, name
+        host = closed_predicate.check(h, models, use_device=False)
+        assert (host["valid?"], host["anomaly-types"]) == \
+            (r["valid?"], r["anomaly-types"]), (name, host, r)
+        verdicts.append(f"{name}: {r['valid?']} {r['anomaly-types']}")
+    log(f"[9e] closed predicate, the seven histories of "
+        f"tests/test_closed_predicate.py: {'; '.join(verdicts)}")
+    log("[9f] closed predicate: the whole dicts equal on the card and the "
+        "CPU, the verdicts and anomaly types the host twin's")
+
+    for kname in launches:
+        launches[kname] += n9[kname]
+    log(f"[9] launches in phase 9: {n9}; phase 9 took "
+        f"{time.perf_counter() - t9:.1f} s")
 
 
 def compaction(device_wgl, search) -> None:
@@ -1230,6 +1542,304 @@ def rw_op_histories():
     yield "cyclic versions", concurrent(
         ([["r", "x", None], ["w", "x", 2]], [["r", "x", 1], ["w", "x", 2]]),
         ([["r", "x", None], ["w", "x", 1]], [["r", "x", 2], ["w", "x", 1]]))
+
+
+# ---- phase 9 corpora: the generators of tests/test_invariants.py, copied
+# (with the port's `Op`/`History`; `bank_history` also takes per-account
+# balances and the largest transfer, whose defaults give the original)
+
+
+def bank_history(n_ops=60, n_accounts=4, balance=10, seed=0,
+                 max_transfer=4):
+    """Serial bank history: transfers conserve, reads snapshot.
+    `balance` is every account's opening balance, or one per account."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import History, Op
+
+    rng = random.Random(seed)
+    opening = (balance if isinstance(balance, (list, tuple))
+               else [balance] * n_accounts)
+    accounts = {i: opening[i] for i in range(n_accounts)}
+    ops = []
+    for i in range(n_ops):
+        p = rng.randrange(3)
+        if rng.random() < 0.5:
+            ops.append(Op(type="invoke", process=p, f="read", value=None))
+            ops.append(Op(type="ok", process=p, f="read",
+                          value=dict(accounts)))
+        else:
+            frm, to = rng.sample(range(n_accounts), 2)
+            amt = 1 + rng.randrange(max_transfer)
+            v = {"from": frm, "to": to, "amount": amt}
+            ops.append(Op(type="invoke", process=p, f="transfer", value=v))
+            if accounts[frm] >= amt:
+                accounts[frm] -= amt
+                accounts[to] += amt
+                ops.append(Op(type="ok", process=p, f="transfer", value=v))
+            else:
+                ops.append(Op(type="fail", process=p, f="transfer",
+                              value=v, error="insufficient"))
+    return History(ops)
+
+
+def inject_bank_wrong_total(h, seed=0):
+    import random
+
+    rng = random.Random(seed)
+    reads = [op for op in h.ops if op.type == "ok" and op.f == "read"]
+    op = reads[rng.randrange(len(reads))]
+    a = sorted(op.value)[0]
+    op.value[a] += 3  # breaks conservation, stays non-negative
+    return h
+
+
+def inject_bank_negative(h, seed=0):
+    import random
+
+    rng = random.Random(seed)
+    reads = [op for op in h.ops if op.type == "ok" and op.f == "read"]
+    op = reads[rng.randrange(len(reads))]
+    a, b = sorted(op.value)[:2]
+    shift = op.value[a] + 5
+    op.value[a] -= shift  # negative, but the TOTAL is conserved
+    op.value[b] += shift
+    return h
+
+
+def lf_history(groups=3, group_size=3, n_reads=12, seed=0):
+    """Serial long-fork history: each key written once, group reads
+    observe the committed prefix."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import History, Op
+
+    rng = random.Random(seed)
+    ops = []
+    written = {}
+    keys = list(range(groups * group_size))
+    to_write = list(keys)
+    rng.shuffle(to_write)
+    p = 0
+
+    def group_read():
+        g = rng.randrange(groups)
+        ks = range(g * group_size, (g + 1) * group_size)
+        mops = [["r", k, written.get(k)] for k in ks]
+        inv = [["r", k, None] for k in ks]
+        return inv, mops
+
+    reads_done = 0
+    while to_write or reads_done < n_reads:
+        p = (p + 1) % 4
+        if to_write and (reads_done >= n_reads or rng.random() < 0.5):
+            k = to_write.pop()
+            ops.append(Op(type="invoke", process=p, f="txn",
+                          value=[["w", k, k]]))
+            ops.append(Op(type="ok", process=p, f="txn",
+                          value=[["w", k, k]]))
+            written[k] = k
+        else:
+            inv, mops = group_read()
+            ops.append(Op(type="invoke", process=p, f="txn", value=inv))
+            ops.append(Op(type="ok", process=p, f="txn", value=mops))
+            reads_done += 1
+    return History(ops)
+
+
+def inject_long_fork(h):
+    """Split two reads of one group: read A forgets k2, read B forgets
+    k1 — the two now order the writes oppositely."""
+    reads = [op for op in h.ops
+             if op.type == "ok" and op.f == "txn"
+             and all(m[0] == "r" for m in (op.value or []))]
+    for ia in range(len(reads)):
+        for ib in range(ia + 1, len(reads)):
+            a, b = reads[ia], reads[ib]
+            ka = {m[1] for m in a.value}
+            if ka != {m[1] for m in b.value}:
+                continue
+            obs_a = {m[1] for m in a.value if m[2] is not None}
+            obs_b = {m[1] for m in b.value if m[2] is not None}
+            both = sorted(obs_a & obs_b)
+            if len(both) < 2:
+                continue
+            k1, k2 = both[:2]
+            for m in a.value:
+                if m[1] == k2:
+                    m[2] = None
+            for m in b.value:
+                if m[1] == k1:
+                    m[2] = None
+            return h
+    raise AssertionError("corpus has no injectable read pair")
+
+
+def ws_history(pairs=2, n_txns=20, seed=0):
+    """Serial write-skew-workload history (valid): read the pair,
+    write one key."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import History, Op
+
+    rng = random.Random(seed)
+    kv = {}
+    ops = []
+    val = 0
+    for i in range(n_txns):
+        p = rng.randrange(3)
+        g = rng.randrange(pairs)
+        k1, k2 = 2 * g, 2 * g + 1
+        inv = [["r", k1, None], ["r", k2, None]]
+        mops = [["r", k1, kv.get(k1)], ["r", k2, kv.get(k2)]]
+        if rng.random() < 0.8:
+            w = rng.choice((k1, k2))
+            inv.append(["w", w, val])
+            mops.append(["w", w, val])
+            kv[w] = val
+            val += 1
+        ops.append(Op(type="invoke", process=p, f="txn", value=inv))
+        ops.append(Op(type="ok", process=p, f="txn", value=mops))
+    return History(ops)
+
+
+def inject_write_skew(h):
+    """Rewrite two updating txns of one pair into the classic skew:
+    both read the same pre-state, each writes a different key."""
+    upd = [op for op in h.ops if op.type == "ok" and op.f == "txn"
+           and any(m[0] == "w" for m in op.value)]
+    for ia in range(len(upd)):
+        for ib in range(ia + 1, len(upd)):
+            a, b = upd[ia], upd[ib]
+            ga = {m[1] // 2 for m in a.value}
+            gb = {m[1] // 2 for m in b.value}
+            if len(ga) == 1 and ga == gb:
+                g = next(iter(ga))
+                k1, k2 = 2 * g, 2 * g + 1
+                # pre-state: what the FIRST txn read
+                pre = {m[1]: m[2] for m in a.value if m[0] == "r"}
+                wa = next(m for m in a.value if m[0] == "w")
+                wb = next(m for m in b.value if m[0] == "w")
+                if wa[1] == wb[1]:
+                    wb[1] = k2 if wa[1] == k1 else k1
+                # both read the identical pre-state (so each misses
+                # the other's write), write different keys
+                for m in b.value:
+                    if m[0] == "r":
+                        m[2] = pre[m[1]]
+                # later reads must not re-anchor b's write after a's:
+                # drop b's written value from any later read
+                for op in h.ops:
+                    if op is a or op is b or op.type != "ok" \
+                            or op.f != "txn":
+                        continue
+                    for m in op.value:
+                        if m[0] == "r" and m[1] == wb[1] \
+                                and m[2] == wb[2]:
+                            m[2] = pre.get(m[1])
+                return h
+    raise AssertionError("corpus has no injectable txn pair")
+
+
+def sess_history(n_keys=3, n_txns=30, seed=0, pin_keys=False):
+    """Serial session history: rmw chains + reads (valid).
+    ``pin_keys=True`` gives every process its own key."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import History, Op
+
+    rng = random.Random(seed)
+    kv = {}
+    ops = []
+    val = 0
+    for i in range(n_txns):
+        p = rng.randrange(3)
+        k = p % n_keys if pin_keys else rng.randrange(n_keys)
+        if rng.random() < 0.6:
+            mops = [["r", k, kv.get(k)], ["w", k, val]]
+            inv = [["r", k, None], ["w", k, val]]
+            kv[k] = val
+            val += 1
+        else:
+            mops = [["r", k, kv.get(k)]]
+            inv = [["r", k, None]]
+        ops.append(Op(type="invoke", process=p, f="txn", value=inv))
+        ops.append(Op(type="ok", process=p, f="txn", value=mops))
+    return History(ops)
+
+
+def inject_session_break(h):
+    """Make one process's LATER read of a key observe an EARLIER
+    version it had already read past (monotonic-reads break)."""
+    per_proc = {}
+    for op in h.ops:
+        if op.type == "ok" and op.f == "txn":
+            for m in op.value:
+                if m[0] == "r" and m[2] is not None:
+                    per_proc.setdefault((op.process, m[1]),
+                                        []).append((op, m))
+    for (p, k), evs in sorted(per_proc.items(), key=repr):
+        if len(evs) >= 2:
+            prior_val = evs[-2][1][2]
+            last_op, last_m = evs[-1]
+            # rewind the session's LAST read to the initial state —
+            # strictly earlier than the prior read's version — inside
+            # a pure-read txn (so no other chain is disturbed)
+            if prior_val is not None and len(last_op.value) == 1:
+                last_m[2] = None
+                return h
+    raise AssertionError("corpus has no injectable session pair")
+
+
+def closed_predicate_histories():
+    """(name, history, models, valid?): the seven micro-histories of
+    tests/test_closed_predicate.py, built with the port's `history`."""
+    from jepsen_tpu_torch.history import fail, history, invoke, ok
+
+    def serial(*events):
+        return history([{"invoke": invoke, "ok": ok}[t](p, "txn", v)
+                        for t, p, v in events])
+
+    def concurrent(*txns):
+        inv, comp = [], []
+        for i, (mops_inv, mops_ok) in enumerate(txns):
+            inv.append(invoke(i, "txn", mops_inv))
+            comp.append(fail(i, "txn", mops_inv) if mops_ok == "fail"
+                        else ok(i, "txn", mops_ok))
+        return history(inv + comp)
+
+    ins_a, ins_b = [("insert", "a", 1)], [("insert", "b", 2)]
+    rp_all = [("rp", "all", None)]
+    yield "valid serial inserts", serial(
+        ("invoke", 0, ins_a), ("ok", 0, ins_a), ("invoke", 0, ins_b),
+        ("ok", 0, ins_b), ("invoke", 1, rp_all),
+        ("ok", 1, [("rp", "all", {"a": 1, "b": 2})])), \
+        ["serializable"], True
+    yield "phantom write skew", concurrent(
+        (rp_all + ins_a, [("rp", "all", {})] + ins_a),
+        (rp_all + ins_b, [("rp", "all", {})] + ins_b)), \
+        ["serializable"], False
+    yield "read-all misses an insert", serial(
+        ("invoke", 0, ins_a), ("ok", 0, ins_a), ("invoke", 1, rp_all),
+        ("ok", 1, [("rp", "all", {})])), ["strict-serializable"], False
+    yield "equality predicate", serial(
+        ("invoke", 0, ins_a), ("ok", 0, ins_a), ("invoke", 0, ins_b),
+        ("ok", 0, ins_b), ("invoke", 1, [("rp", ("=", 1), None)]),
+        ("ok", 1, [("rp", ("=", 1), {"a": 1})])), ["serializable"], True
+    yield "delete then read-all", serial(
+        ("invoke", 0, ins_a), ("ok", 0, ins_a),
+        ("invoke", 0, [("delete", "a")]), ("ok", 0, [("delete", "a")]),
+        ("invoke", 1, rp_all), ("ok", 1, [("rp", "all", {})])), \
+        ["strict-serializable"], True
+    yield "structural", serial(
+        ("invoke", 0, ins_a), ("ok", 0, ins_a),
+        ("invoke", 0, [("insert", "a", 9)]), ("ok", 0, [("insert", "a", 9)]),
+        ("invoke", 1, rp_all), ("ok", 1, [("rp", "all", {"a": 7})])), \
+        ["serializable"], False
+    yield "G1c predicate wr cycle", concurrent(
+        (ins_a + rp_all, ins_a + [("rp", "all", {"a": 1, "b": 2})]),
+        (ins_b + rp_all, ins_b + [("rp", "all", {"a": 1, "b": 2})])), \
+        ["read-committed"], False
 
 
 def walk(a, b, path=""):

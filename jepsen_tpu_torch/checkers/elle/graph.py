@@ -9,15 +9,16 @@ The reference uses bifurcan's sequential Tarjan; here Tarjan is an iterative
 host implementation used (a) as the exact oracle and (b) to classify the
 small offending subgraphs that the device cycle sweep reports as witnesses.
 The at-scale cycle *detection* path is the device sweep in
-`jepsen_tpu_torch.ops.cycle_sweep`.  The JAX package's C++ Tarjan is not
-ported yet: `tarjan_scc` here is the pure-Python body, which the C++ one
-is held equal to.
+`jepsen_tpu_torch.ops.cycle_sweep`.  `tarjan_scc` runs the C++ Tarjan of
+`jepsen_tpu_torch.native` unless `JT_NO_NATIVE` is set; its Python body is
+the anchor the C++ one is held equal to.
 
 Rel codes are shared with the device pipeline.
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -160,8 +161,15 @@ def tarjan_scc(n: int, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """Iterative Tarjan SCC.  Returns component label per node (arbitrary ids).
 
     Host equivalent of bifurcan `Graphs.stronglyConnectedComponents`
-    (SURVEY.md §2.5 #1).  Iterative to survive deep graphs.
+    (SURVEY.md §2.5 #1).  Iterative to survive deep graphs.  Runs the
+    C++ implementation (`jepsen_tpu_torch.native`, which raises when it
+    cannot be built) unless `JT_NO_NATIVE` is set — the Python body
+    below is the semantic anchor it is differentially tested against.
     """
+    if n and not os.environ.get("JT_NO_NATIVE"):
+        from jepsen_tpu_torch import native
+
+        return native.scc(n, src, dst)
     adj_dst, starts, ends, _ = _adjacency(n, src, dst)
     UNVISITED = -1
     index = np.full(n, UNVISITED, dtype=np.int64)

@@ -18,9 +18,10 @@ import numpy as np
 class Search:
     """Shared control block for one search run.
 
-    `flag` is a (1,) int32 kept from the JAX package, whose native C++
-    WGL polls it; the port has no native search yet, so only the
-    Python legs read `aborted()`.
+    `flag` is a (1,) int32 shared with native searches: ctypes calls
+    release the GIL, so the C++ WGL polls this memory while another
+    thread aborts — the loser of a competition stops within ~1k configs
+    instead of running out its full budget.
 
     Aborts carry a *reason* ("aborted" for competition losers /
     caller cancels, "deadline-exceeded" for expired budgets) so the
@@ -96,8 +97,10 @@ class ChildSearch(Search):
     stays reusable), while a parent abort — or the parent's deadline —
     propagates to the child at the child's next `aborted()` poll.  The
     child inherits the parent's deadline implicitly through that poll;
-    its own `deadline_s` (if any) is additional.  The propagation is
-    poll-driven: every leg of the port polls `aborted()`."""
+    its own `deadline_s` (if any) is additional.  Note the propagation
+    is poll-driven: a leg that only watches the shared `flag` memory
+    (the native C++ DFS) sees a parent abort once any python-side
+    participant polls this child."""
 
     def __init__(self, parent: Optional[Search] = None, *,
                  deadline_s: Optional[float] = None, deadline=None):

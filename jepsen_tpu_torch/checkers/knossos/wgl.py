@@ -12,17 +12,19 @@ This is BASELINE.json config 1's correctness anchor; the batched
 frontier search on the card (`device_wgl`) is differentially tested
 against it.
 
-The JAX package first tries a C++ WGL (`jepsen_tpu/native`, its
-`_search_native`) and runs the Python search only when that library is
-missing or `JT_NO_NATIVE` is set.  The native library is not ported yet,
-so the port's `check` always runs the Python search: the JAX package
-under `JT_NO_NATIVE=1` gives the same result dicts.
+As in the JAX package, `check` runs the C++ WGL of `jepsen_tpu_torch.native`
+first (`_search_native`) and the Python DFS only under `JT_NO_NATIVE`, or
+to re-derive the failure diagnostics of a small invalid search.  Where the
+JAX package also runs the Python DFS when its library did not build, the
+port raises `native.NativeError`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
+from jepsen_tpu_torch import native
 from jepsen_tpu_torch.checkers.knossos.memo import Memo, StateExplosion, memoize
 from jepsen_tpu_torch.checkers.knossos.prep import NEVER, LinOp, prepare
 from jepsen_tpu_torch.checkers.knossos.search import stamp_abort
@@ -159,17 +161,47 @@ def _search_direct(ops: Sequence[LinOp], model: Model,
     return False, {"op-count": n}
 
 
+def _search_native(ops: Sequence[LinOp], memo: Memo, max_configs: int,
+                   ctl=None):
+    """The C++ WGL (`jepsen_tpu_torch.native`); returns (NotImplemented,
+    None) under `JT_NO_NATIVE`, for the Python search.  `ctl.flag` is
+    shared with the C++ search so a competition can abort it mid-run (the
+    ctypes call releases the GIL)."""
+    if os.environ.get("JT_NO_NATIVE"):
+        return NotImplemented, None
+    ok, explored, aborted = native.wgl(
+        memo.op_sym, [op.invoke_pos for op in ops],
+        [op.return_pos for op in ops], NEVER, memo.table, memo.init_state,
+        max_configs, abort_flag=ctl.flag if ctl is not None else None)
+    if aborted:
+        return None, {"reason": "aborted", "explored": explored}
+    if ok is None:
+        return None, {"reason": "config budget exhausted",
+                      "explored": explored}
+    if ok is False:
+        # Re-run the Python search for the final-info diagnostics
+        # (max-linearized, witness configs) when cheap; keep the summary
+        # shape when the config space is too big to redo.
+        if explored <= 200_000:
+            return _search_memo(ops, memo, max_configs, ctl)
+        return False, {"op-count": len(ops), "explored": explored}
+    return True, None
+
+
 def check(history: History | Sequence[LinOp], model: Model,
           max_configs: int = 5_000_000, ctl=None) -> Dict[str, Any]:
     """Check linearizability of a single-object history against a model.
-    `ctl` (a `search.Search`) lets a competition abort the search: the
-    DFS polls it every 4096 configs."""
+    `ctl` (a `search.Search`) lets a competition abort the search —
+    both the Python DFS (polled every 4096 configs) and the C++ one
+    (shared abort flag, polled every 1024 configs)."""
     ops = history if isinstance(history, list) else prepare(history)
     if not ops:
         return {"valid?": "unknown", "op-count": 0}
     try:
         memo = memoize(model, ops)
-        ok, info = _search_memo(ops, memo, max_configs, ctl)
+        ok, info = _search_native(ops, memo, max_configs, ctl)
+        if ok is NotImplemented:
+            ok, info = _search_memo(ops, memo, max_configs, ctl)
     except StateExplosion:
         ok, info = _search_direct(ops, model, max_configs, ctl)
     if ok is None:

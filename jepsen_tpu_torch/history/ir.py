@@ -9,6 +9,10 @@ that also memoizes
 - the padded device layout (``PaddedLA``), with its static capacity
   facts and pad-time derived-order columns, per (workload, device): a
   padded layout on the card and one on the CPU are different objects;
+- the rw dependency inference (`rw_inference`, the ``RwInference`` of
+  `checkers.invariants.packed.infer_rw`) shared by the predicate and
+  session invariants checkers;
+- the bank balance matrix (`bank`, a ``PackedBank``) per account set;
 - the Knossos entry table (`lin_ops`, `knossos.prep.prepare`'s LinOp
   rows), which `knossos.analysis` takes from an IR it is handed.
 
@@ -20,8 +24,7 @@ and pair index, so every consumer that only needs a History keeps working.
 The JAX package books each section's build time into its telemetry spans;
 the port has no telemetry module, so the build times stay on the IR as a
 plain dict, :attr:`HistoryIR.build_s`.  The JAX sections whose consumers
-are not ported yet (`rw_inference`, `bank`, `queue`, `bucket_class`) are
-left out.
+are not ported yet (`queue`, `bucket_class`) are left out.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ class HistoryIR(History):
         self._padded: Dict[Tuple[str, torch.device], Any] = {}
         self._packed_source = None
         self._lin_ops: Optional[List[Any]] = None
+        self._rw_inf = None
+        self._bank: Dict[Optional[Tuple[str, ...]], Any] = {}
         #: seconds each section's build took, by section name (memoized
         #: hits add nothing)
         self.build_s: Dict[str, float] = {}
@@ -130,6 +135,28 @@ class HistoryIR(History):
                 f"padded:{workload}:{dev}",
                 lambda: device_infer.pad_packed(packed, device=dev))
         return h
+
+    def rw_inference(self):
+        """The shared rw dependency inference (RwInference) the
+        predicate and session invariants checkers both consume."""
+        if self._rw_inf is None:
+            from jepsen_tpu_torch.checkers.invariants import packed as inv
+
+            packed = self.packed("rw-register")
+            self._rw_inf = self._booked(
+                "rw_inference", lambda: inv.infer_rw(packed))
+        return self._rw_inf
+
+    def bank(self, accounts=None):
+        """The bank balance-matrix packing (PackedBank)."""
+        key = tuple(sorted(map(repr, accounts))) if accounts else None
+        pb = self._bank.get(key)
+        if pb is None:
+            from jepsen_tpu_torch.checkers.invariants.packed import pack_bank
+
+            pb = self._bank[key] = self._booked(
+                "bank", lambda: pack_bank(self, accounts))
+        return pb
 
     def lin_ops(self) -> List[Any]:
         """The knossos linearizability entry table (LinOp rows)."""

@@ -3,9 +3,10 @@
 Each source is compiled by its own `nvcc` process, all started together,
 into an object for `sm_90a`; one link step joins the objects into a shared
 library with a plain C interface, which is loaded with `ctypes`.  The
-library's file name carries a digest of the sources and the flags, so an
-edited source builds anew and an unchanged one is loaded from the build
-directory (`build/` at the checkout root, listed in `.gitignore`).
+library's file name carries a digest of the sources, the flags and
+`nvcc --version`'s text, so an edited source or another toolkit builds
+anew and an unchanged one is loaded from the build directory (`build/` at
+the checkout root, listed in `.gitignore`).
 
 A missing `nvcc`, a failed build or a failed launch raises `KernelError`:
 nothing falls back to the plain PyTorch versions, and the checkers'
@@ -42,8 +43,16 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+@functools.cache
+def _nvcc_version(nvcc: str) -> str:
+    res = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True)
+    return res.stdout + res.stderr
+
+
+def _digest(nvcc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(_nvcc_version(nvcc).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,12 +74,13 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile and link the kernels if the library for the current
     sources is not built yet; returns the library's path."""
-    so = BUILD_DIR / f"libjt_kernels_{_digest()}.so"
+    nvcc = _nvcc()
+    digest = _digest(nvcc)
+    so = BUILD_DIR / f"libjt_kernels_{digest}.so"
     if so.exists():
         return so
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{_digest()}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}"
     jobs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"

@@ -10,8 +10,10 @@ attributable verdict.
   resilience layer's own test harness (given as ``plan=`` or installed
   with :class:`use`);
 - :mod:`~.guard` — :func:`device_call`, the seam wrapper that retries
-  transients, and :func:`degrade_to_host`, the tail that runs the host
-  oracle with a ``"degraded": "host-fallback"`` stamp.
+  transients, :func:`degrade_to_host`, the tail that runs the host
+  oracle with a ``"degraded": "host-fallback"`` stamp, and
+  :func:`with_fallback`, the two joined (only a synthetic fault
+  degrades).
 """
 
 from jepsen_tpu_torch.resilience.faults import (
@@ -26,6 +28,7 @@ from jepsen_tpu_torch.resilience.guard import (
     DEGRADED_HOST,
     degrade_to_host,
     device_call,
+    with_fallback,
 )
 from jepsen_tpu_torch.resilience.policy import (
     DEADLINE_ERROR,
@@ -41,6 +44,6 @@ __all__ = [
     "Deadline", "DeadlineExceeded", "RetryPolicy", "is_transient",
     "DEADLINE_ERROR", "DEFAULT_POLICY", "deadline_result",
     "FaultPlan", "FaultInjected", "use", "install", "clear", "active_plan",
-    "device_call", "degrade_to_host",
+    "device_call", "degrade_to_host", "with_fallback",
     "DEGRADED_HOST",
 ]

@@ -14,18 +14,22 @@ checker (elle infer, the cycle sweeps):
    oracle via :func:`degrade_to_host`, stamping ``"degraded":
    "host-fallback"``.
 
+:func:`with_fallback` joins the two for the invariants checkers (bank,
+predicate, session).  Its rule is the port's, not the JAX package's: only
+a synthetic :class:`~.faults.FaultInjected` of a fault plan degrades to
+the host oracle; every other error of the device path (a kernel or CUDA
+error, no card) is raised, where the JAX package degrades any exception.
+
 Retries and fallbacks are logged on the ``jepsen.resilience`` logger.
 The JAX package's telemetry counters, span annotations and compile-cost
-stamps are not carried over (the port has no telemetry module yet), nor
-is its `with_fallback`, whose callers (the invariant and queue checkers)
-the port does not have yet.
+stamps are not carried over (the port has no telemetry module yet).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 from jepsen_tpu_torch.resilience import faults as faults_mod
 from jepsen_tpu_torch.resilience.policy import (
@@ -37,7 +41,8 @@ from jepsen_tpu_torch.resilience.policy import (
 
 logger = logging.getLogger("jepsen.resilience")
 
-__all__ = ["device_call", "degrade_to_host", "DEGRADED_HOST"]
+__all__ = ["device_call", "degrade_to_host", "with_fallback",
+           "DEGRADED_HOST"]
 
 DEGRADED_HOST = "host-fallback"
 
@@ -104,3 +109,23 @@ def degrade_to_host(site: str, host_fn: Callable[[], Any],
         res["degraded"] = DEGRADED_HOST
         res["device-error"] = f"{type(exc).__name__}: {exc}"
     return res
+
+
+def with_fallback(site: str, device_fn: Callable[[], Any],
+                  host_fn: Callable[[], Any], *,
+                  policy: Optional[RetryPolicy] = None,
+                  deadline: Optional[Deadline] = None,
+                  plan: Optional[faults_mod.FaultPlan] = None
+                  ) -> Tuple[Any, Optional[str]]:
+    """Run `device_fn` under :func:`device_call`; when a synthetic
+    :class:`~.faults.FaultInjected` outlives its retries, run `host_fn`
+    via :func:`degrade_to_host`.  Returns ``(result, degraded)`` where
+    `degraded` is None on the device path and :data:`DEGRADED_HOST` after
+    the oracle fallback (dict results also carry the stamp).  Every other
+    error, and :class:`DeadlineExceeded`, is raised."""
+    try:
+        return device_call(site, device_fn, policy=policy,
+                           deadline=deadline, plan=plan), None
+    except faults_mod.FaultInjected as e:  # the degradation drill
+        return degrade_to_host(site, host_fn, e,
+                               deadline=deadline), DEGRADED_HOST

@@ -31,10 +31,15 @@ from jepsen_tpu_torch.resilience import Deadline  # noqa: E402
 from jepsen_tpu_torch.workloads import synth as tsynth  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
-def _no_native(monkeypatch):
-    """The JAX WGL runs its Python search, the one the port has."""
-    monkeypatch.setenv("JT_NO_NATIVE", "1")
+@pytest.fixture(autouse=True, params=["native", "no-native"])
+def _no_native(request, monkeypatch):
+    """Every case runs twice: with `JT_NO_NATIVE` unset, both packages
+    run their C++ WGL and Tarjan (the JAX package's default path), and
+    with it set, both run the Python searches."""
+    if request.param == "native":
+        monkeypatch.delenv("JT_NO_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("JT_NO_NATIVE", "1")
 
 
 def carry(h):

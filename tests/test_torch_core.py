@@ -6,7 +6,8 @@ the port's purity.
 and overflow on every corpus (the JAX side on its default branch here on
 the CPU), the helpers must round-trip both packages' arrays exactly,
 `packed_la_history` must equal the original, and importing the port and
-running a check (`core_check_exact`, `list_append.check`, `oracle.check`)
+running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
+`rw_register.check`, Knossos, the native `wgl.check`, `session.check`)
 must load neither `jax` nor `jepsen_tpu`.
 """
 
@@ -193,6 +194,22 @@ for alg in ("auto", "wgl", "linear", "device"):
 r = check_safe(compose({"linear": api.Linearizable(device="cpu"),
                         "stats": api.Stats()}), {}, lh, {})
 assert r["valid?"] is True and r["linear"]["valid?"] is True, r
+from jepsen_tpu_torch import native
+from jepsen_tpu_torch.checkers import invariants
+from jepsen_tpu_torch.checkers.elle import closed_predicate
+from jepsen_tpu_torch.checkers.invariants import session
+from jepsen_tpu_torch.checkers.knossos import wgl
+native.CALLS = 0
+assert wgl.check(lh, cas_register())["valid?"] is True
+assert native.CALLS == 1, native.CALLS
+sh = history([invoke(0, "txn", [["r", 0, None], ["w", 0, 1]]),
+              ok(0, "txn", [["r", 0, None], ["w", 0, 1]]),
+              invoke(0, "txn", [["r", 0, None]]),
+              ok(0, "txn", [["r", 0, None]])])
+r = session.check(sh, device="cpu")
+assert r["valid?"] is False and r["anomaly-types"] == [
+    "read-your-writes-violation"], r
+assert "session" in invariants.MODELS and closed_predicate.check
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)

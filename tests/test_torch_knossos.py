@@ -9,8 +9,9 @@ on the CPU, on it.  The tolerance is exact:
   message); `memoize` tables, `op_sym` and `n_states` are equal;
 - `prepare` and `lin_register_history` give equal `LinOp` rows and ops;
 - `wgl.check`, `linear.check`, `device_wgl.check`,
-  `device_wgl._blocked_and_check` and `analysis` return equal dicts (the
-  JAX WGL under `JT_NO_NATIVE=1`, the search the port runs);
+  `device_wgl._blocked_and_check` and `analysis` return equal dicts, with
+  `JT_NO_NATIVE` unset (both packages' C++ WGL, the JAX default) and set
+  (both packages' Python search);
 - `_expand_block` returns the JAX arrays bit for bit, the port's int32
   words read through `.view(np.uint32)`.
 
@@ -54,10 +55,15 @@ from jepsen_tpu_torch.resilience import Deadline  # noqa: E402
 from jepsen_tpu_torch.workloads import synth as tsynth  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
-def _no_native(monkeypatch):
-    """The JAX WGL runs its Python search, the one the port has."""
-    monkeypatch.setenv("JT_NO_NATIVE", "1")
+@pytest.fixture(autouse=True, params=["native", "no-native"])
+def _no_native(request, monkeypatch):
+    """Every case runs twice: with `JT_NO_NATIVE` unset, both packages
+    run their C++ WGL and Tarjan (the JAX package's default path), and
+    with it set, both run the Python searches."""
+    if request.param == "native":
+        monkeypatch.delenv("JT_NO_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("JT_NO_NATIVE", "1")
 
 
 def small_state_cap(monkeypatch, cap=500):

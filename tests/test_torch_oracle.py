@@ -5,6 +5,8 @@ Covers `history.ops` (and the `history([asdict(op) ...])` carry-over),
 `history.soa.pack_txns`, `checkers.elle.oracle.check`, `graph`
 (`tarjan_scc`, `find_cycle`), `specs`, `consistency`, `sessions`,
 `coverage` and `resilience`.  Everything here is host code: no jit runs.
+Every case runs with `JT_NO_NATIVE` unset (both packages' C++ Tarjan, the
+JAX default) and set (both packages' Python Tarjan).
 """
 
 import dataclasses
@@ -47,6 +49,15 @@ from test_torch_list_append import (  # noqa: E402
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 LA_GOLDEN = sorted(glob.glob(os.path.join(DATA, "la-*.json")))
 RW_GOLDEN = sorted(glob.glob(os.path.join(DATA, "rw-*.json")))
+
+
+@pytest.fixture(autouse=True, params=["native", "no-native"])
+def _no_native(request, monkeypatch):
+    """Both packages on their C++ Tarjan, then on their Python one."""
+    if request.param == "native":
+        monkeypatch.delenv("JT_NO_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("JT_NO_NATIVE", "1")
 
 
 def op_history(case):
@@ -131,14 +142,13 @@ def _random_graph(seed):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_tarjan_scc_equal_to_jax(seed, monkeypatch):
+def test_tarjan_scc_equal_to_jax(seed):
     n, src, dst, _ = _random_graph(seed)
     got = tgraph.tarjan_scc(n, src, dst)
-    # the JAX package's C++ Tarjan where it builds, up to relabelling
-    assert _relabel(got) == _relabel(jgraph.tarjan_scc(n, src, dst))
-    # and its pure-Python body, label for label
-    monkeypatch.setenv("JT_NO_NATIVE", "1")
+    # both packages under one `JT_NO_NATIVE` setting, label for label:
+    # the ids are arbitrary, so C++ and Python labels need not match
     np.testing.assert_array_equal(got, jgraph.tarjan_scc(n, src, dst))
+    assert _relabel(got) == _relabel(jgraph.tarjan_scc(n, src, dst))
     assert [c.tolist() for c in tgraph.nontrivial_sccs(n, src, dst)] == \
         [c.tolist() for c in jgraph.nontrivial_sccs(n, src, dst)]
 

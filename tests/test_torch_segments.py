@@ -314,3 +314,14 @@ def test_seg_or_geometry(case):
 def test_locf_geometry(n, tiles):
     # one status word per tile after the counter: 32 KiB + 8 at 2^24
     assert fill.locf_geometry(n) == (tiles, 1 + tiles)
+
+
+def test_kernel_digest_keys_nvcc_version(monkeypatch):
+    """Another toolkit's nvcc gives another library name, so a library
+    another compiler built is never loaded."""
+    monkeypatch.setattr(kernels, "_nvcc_version",
+                        lambda nvcc: "Cuda compilation tools, release 12.8")
+    a = kernels._digest("nvcc")
+    monkeypatch.setattr(kernels, "_nvcc_version",
+                        lambda nvcc: "Cuda compilation tools, release 13.0")
+    assert kernels._digest("nvcc") != a
