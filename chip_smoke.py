@@ -118,11 +118,47 @@ Phases, each asserting; any failure exits non-zero:
      f. card == CPU: the whole result dict of a-e, at full size where the
         CPU run takes seconds and at 20,000 txns for the injected write
         skew and the unpinned session.
+ 10. the queue/kafka checker family on the card, on copies of
+     `tests/test_queue_checkers.py`'s corpus builders (`sim_kafka`,
+     `sim_mem_queue`); `_math` is plain torch and launches neither kernel.
+     Every dict equals the host twin's (`use_device=False`):
+     a. kafka, `sim_kafka(0, ops=500,000, n_clients=10)` with the tests'
+        generator knobs, through `kafka.check` on one `HistoryIR` (one
+        warm-up, three timed calls): valid, not degraded; the simulator's
+        time, `build_s["queue:kafka"]`, the device part of each call
+        (`with_fallback`'s), peak device memory, and whether JAX's
+        `device_safe` bound would have sent the history to the host;
+     b. 50,000 ops with each of the six adversarial knobs at 0.002, and
+        with frozen commits (seeds in order until `stale-consumer-group`
+        shows); at 25,000 ops the card == the scan twin `KafkaChecker`;
+     c. the total queue, `sim_mem_queue(0, ops=500,000)` drained: valid
+        with `fifo=False` and `fifo=True`; `lose_enqueue_p` gives
+        `queue-lost`, `dup_enqueue_p` `queue-phantom`, and
+        `reorder_dequeue_p` `queue-fifo-violation` with `fifo=True` only;
+     d. the int64 route: `sim_kafka(0, ops=86,000)`, whose epoch codes
+        pass 2^30 (JAX's `device_safe` is False), runs on the card and
+        equals `host_verdict`;
+ 11. BASELINE config 4 on the card: `packed_la_history(10M,
+     n_keys=1,250,000)` in one `HistoryIR`, `ir.padded()` (T = 2^24,
+     M = 2^26, R = 2^28):
+     a. `core_check` (one warm-up, three timed runs): valid bits, 14
+        forward-fill launches per check, txns/s, peak device memory, the
+        generation and pad times;
+     b. each kernel once against its plain version, bit for bit: LOCF on
+        11a's largest fill input (n = 2^28), seg-OR inclusive and
+        exclusive on a seeded (2^25, 128) int8 plane (2^32 elements);
+     d. `list_append.check(ir, ["strict-serializable"])` once: valid, not
+        degraded, no `pad_packed` call;
+     c. 64 stale reads, `core_check_exact` from `max_k` 32 (at 128 the
+        sweep asks for more than the card holds): G-single cycles in
+        projections 2-4, converged; the budget of each sweep, seg-OR
+        launches, time and peak device memory.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
-6a and 6b, each counted call of phase 7 and each check on the card of
-phase 9, and read just after each; the kernels' `launches` are their sum
-(phase 8 asserts that it launches neither).  The command's total time,
+6a and 6b, each counted call of phase 7, each check on the card of phase
+9 and each counted check of phase 11, and read just after each; the
+kernels' `launches` are their sum (phases 8 and 10 assert that they
+launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.
@@ -188,6 +224,36 @@ WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
 SESS_KW = dict(n_keys=64, n_txns=100_000, seed=0)                  # 9d
 N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
 INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
+#: 10: the kafka corpus's generator knobs (tests/test_queue_checkers.py)
+KAFKA_GEN = dict(key_count=3, crash_frac=0.05, subscribe_frac=0.5,
+                 txn_frac=0.3)
+#: 10a: about what a long Jepsen kafka run records: 10 workers for about
+#: 15 minutes at about 550 ops/s
+KAFKA_FULL = dict(ops=500_000, n_clients=10)
+KAFKA_KNOBS = ("lose_tail_p", "dup_p", "dup_send_p", "reorder_p",
+               "zombie_p", "torn_p")
+KAFKA_INJECT_P = 0.002       # 10b: each knob's rate
+KAFKA_INJECT_OPS = 50_000
+#: 10b: what those knobs give at 50,000 ops (the frozen run adds
+#: stale-consumer-group)
+KAFKA_INJECTED = ("duplicate", "inconsistent-offsets", "int-send-skip",
+                  "lost-write", "nonmonotonic-send")
+KAFKA_TWIN_OPS = 25_000      # 10b: the scan twin grows too fast for more
+QUEUE_OPS = 500_000          # 10c
+QUEUE_INJECT_P = 0.001
+INT64_OPS = 86_000           # 10d: the smallest sim_kafka(0, ops=n), n a
+                             # multiple of 1,000, whose epoch codes pass 2^30
+#: 11: BASELINE config 4 ("ops/sec verified on 10M-op history"), with
+#: bench.py's key rule; `ir.padded()` gives T = 2^24, M = 2^26 and
+#: R = 2^28 (the history's reads hold about 1.5e8 elements)
+N_10M = 10_000_000
+N_KEYS_10M = N_10M // 8
+SHAPES_10M = (1 << 24, 1 << 26, 1 << 28)
+#: 11c: the sweep's first backward-edge budget.  At the default 128 the
+#: stale check asks for more than the card's 80 GB (the relax pass gathers
+#: a (3 * 2^26, 128) int8 plane, 24 GiB); 32 is scripts/tpu_10m.py's, and
+#: `core_check_exact` grows it while the sweep overflows
+MAX_K_10M = 32
 T_START = time.perf_counter()
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
@@ -680,6 +746,12 @@ def main(argv=None) -> int:
 
     # ---- 9. the invariants and the closed predicate on the card -----------
     check_invariants(dev, launches)
+
+    # ---- 10. the queue/kafka checker family on the card -------------------
+    check_queue(dev)
+
+    # ---- 11. the 10M-txn rung (BASELINE config 4) on the card -------------
+    check_10m(dev, launches)
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -1363,6 +1435,283 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
         f"{time.perf_counter() - t9:.1f} s")
 
 
+def check_queue(dev: torch.device) -> None:
+    """Phase 10: the queue/kafka checker family on the card (see the module
+    docstring).  The family is plain torch ops and launches neither
+    kernel."""
+    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch.checkers.queue import fifo, kafka, packed
+    from jepsen_tpu_torch.history.ir import HistoryIR
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.workloads.kafka import KafkaChecker
+
+    t10 = time.perf_counter()
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
+    part = Split((("device part", resilience, "with_fallback"),))
+
+    def on_card(check, h, **kw):
+        """One check on the card: its result, wall time and device part
+        (`with_fallback`'s call), which must have run once."""
+        with part:
+            r, t = wall_s(lambda: check(h, device=dev, **kw))
+        assert part.calls["device part"] == 1, part.calls
+        assert "degraded" not in r, r
+        return r, t, part.s["device part"]
+
+    # ---- 10a. kafka at full size ------------------------------------------
+    h, t_sim = wall_s(lambda: sim_kafka(0, **KAFKA_FULL))
+    ir = HistoryIR(h)
+    torch.cuda.reset_peak_memory_stats()
+    r, t_warm, _ = on_card(kafka.check, ir)
+    pk = ir.queue("kafka")
+    timed = [on_card(kafka.check, ir) for _ in range(3)]
+    assert all(x[0] == r for x in timed)
+    assert r["valid?"] is True, r["anomaly-types"]
+    host, t_host = wall_s(lambda: kafka.check(ir, use_device=False))
+    assert host == r, (host, r)
+    log(f"[10a] kafka, sim_kafka(0, {KAFKA_FULL}): {len(h.ops)} ops "
+        f"simulated in {t_sim:.2f} s; {pk.n_sends} sends, {pk.n_polls} "
+        f"polls, {len(pk.m_key)} polled messages; build_s['queue:kafka'] "
+        f"{ir.build_s['queue:kafka']:.4f} s; valid? {r['valid?']}; warm-up "
+        f"{t_warm:.4f} s, timed "
+        f"{', '.join(f'{t:.4f}' for _, t, _ in timed)} s, device part "
+        f"{', '.join(f'{d:.4f}' for _, _, d in timed)} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"b_ep max {int(pk.b_ep.max())}: JAX's device_safe is "
+        f"{pk.device_safe}, so the JAX package would check it "
+        f"{'on its device' if pk.device_safe else 'on the host'}; == "
+        f"use_device=False ({t_host:.4f} s)")
+    del h, ir, pk, timed
+
+    # ---- 10b. injected kafka ----------------------------------------------
+    knobs = dict.fromkeys(KAFKA_KNOBS, KAFKA_INJECT_P)
+    frozen = dict(n_clients=2, freeze=True,
+                  gen_kw=dict(key_count=2, subscribe_frac=0.2))
+    h = sim_kafka(0, ops=KAFKA_INJECT_OPS, n_clients=10, **knobs)
+    r, t, d = on_card(kafka.check, h)
+    assert r == kafka.check(h, use_device=False), "10b injected"
+    assert set(KAFKA_INJECTED) <= set(r["anomaly-types"]), r["anomaly-types"]
+    log(f"[10b] kafka, {KAFKA_INJECT_OPS} ops, each of {KAFKA_KNOBS} at "
+        f"{KAFKA_INJECT_P}: {r['anomaly-types']} in {t:.4f} s (device part "
+        f"{d:.4f} s), == the host twin")
+    for seed in range(8):
+        h = sim_kafka(seed, ops=KAFKA_INJECT_OPS, **frozen)
+        r, t, d = on_card(kafka.check, h)
+        assert r == kafka.check(h, use_device=False), ("10b frozen", seed)
+        if "stale-consumer-group" in r["anomaly-types"]:
+            break
+    assert "stale-consumer-group" in r["anomaly-types"], r["anomaly-types"]
+    log(f"[10b] kafka, {KAFKA_INJECT_OPS} ops, frozen commits ({frozen}), "
+        f"seed {seed}: {r['anomaly-types']} in {t:.4f} s (device part "
+        f"{d:.4f} s), == the host twin")
+    for what, kw in (("injected", dict(n_clients=10, **knobs)),
+                     ("frozen commits", frozen)):
+        h = sim_kafka(0, ops=KAFKA_TWIN_OPS, **kw)
+        r, t, _ = on_card(kafka.check, h)
+        twin, t_twin = wall_s(lambda: KafkaChecker().check(None, h, {}))
+        assert r == twin, (what, r, twin)
+        log(f"[10b] kafka, {KAFKA_TWIN_OPS} ops, {what}: the card "
+            f"({t:.4f} s) == the scan twin KafkaChecker ({t_twin:.4f} s): "
+            f"{r['anomaly-types']}")
+
+    # ---- 10c. the total queue ---------------------------------------------
+    for what, kw, want in (
+            ("drained", {}, ([], [])),
+            ("lose_enqueue_p", dict(lose_enqueue_p=QUEUE_INJECT_P),
+             ([fifo.LOST], [fifo.LOST])),
+            ("dup_enqueue_p", dict(dup_enqueue_p=QUEUE_INJECT_P),
+             ([fifo.PHANTOM], [fifo.PHANTOM])),
+            ("reorder_dequeue_p", dict(reorder_dequeue_p=QUEUE_INJECT_P),
+             ([], [fifo.FIFO]))):
+        h, t_sim = wall_s(lambda: sim_mem_queue(0, ops=QUEUE_OPS, **kw))
+        ir = HistoryIR(h)
+        got = []
+        for strict in (False, True):
+            r, t, d = on_card(fifo.check, ir, fifo=strict)
+            assert r == fifo.check(ir, fifo=strict, use_device=False), \
+                (what, strict)
+            got.append((r["anomaly-types"], t, d))
+        assert tuple(g[0] for g in got) == want, (what, got)
+        log(f"[10c] total queue, sim_mem_queue(0, ops={QUEUE_OPS}"
+            f"{''.join(f', {k}={v}' for k, v in kw.items())}): "
+            f"{len(h.ops)} ops in {t_sim:.2f} s, build_s['queue:fifo'] "
+            f"{ir.build_s['queue:fifo']:.4f} s; fifo=False {got[0][0]} in "
+            f"{got[0][1]:.4f} s (device part {got[0][2]:.4f} s), fifo=True "
+            f"{got[1][0]} in {got[1][1]:.4f} s (device part "
+            f"{got[1][2]:.4f} s); == the host twin")
+    del h, ir
+
+    # ---- 10d. the int64 route ---------------------------------------------
+    h = sim_kafka(0, ops=INT64_OPS)
+    pk = packed.pack_kafka(h)
+    assert not pk.device_safe and int(pk.b_ep.max()) >= int(packed.SENTINEL)
+    r, t, d = on_card(kafka.check, pk)
+    assert d > 0 and r == kafka.host_verdict(pk), r
+    log(f"[10d] kafka, sim_kafka(0, ops={INT64_OPS}): b_ep max "
+        f"{int(pk.b_ep.max())} >= 2^30, device_safe False: on the card in "
+        f"{t:.4f} s (device part {d:.4f} s), == host_verdict")
+    n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    assert n == {"locf": 0, "seg_or": 0}, n
+    log(f"[10] launches of either kernel in phase 10: {n}; phase 10 took "
+        f"{time.perf_counter() - t10:.1f} s")
+
+
+def check_10m(dev: torch.device, launches: dict) -> None:
+    """Phase 11: the list-append main path at BASELINE config 4's size on
+    the card (see the module docstring).  The counters are set to 0 just
+    before each counted check and read just after; the sums go into the
+    main path's `launches`."""
+    from jepsen_tpu_torch.checkers.elle import (
+        device_core,
+        device_infer,
+        list_append,
+    )
+    from jepsen_tpu_torch.history.ir import HistoryIR
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    t11 = time.perf_counter()
+
+    def counted(fn):
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        out, t = wall_s(fn)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return out, t, n
+
+    # ---- 11a. valid 10M ---------------------------------------------------
+    t0 = time.perf_counter()
+    p = packed_la_history(N_10M, n_keys=N_KEYS_10M, seed=0)
+    t_gen = time.perf_counter() - t0
+    ir = HistoryIR(p)
+    torch.cuda.reset_peak_memory_stats()
+    h, t_pad = wall_s(lambda: ir.padded(device=dev))
+    shapes = (h.txn_type.shape[0], h.mop_txn.shape[0], h.rd_elems.shape[0])
+    log(f"[11a] {N_10M} txns, {N_KEYS_10M} keys: generated in {t_gen:.2f} "
+        f"s, padded + staged in {t_pad:.2f} s (T={shapes[0]}, M={shapes[1]}, "
+        f"R={shapes[2]}, V={h.v_cap}, O={h.o_cap}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    assert shapes == SHAPES_10M, shapes
+
+    # the warm-up keeps the largest input any fill is given (for 11b)
+    biggest = []
+    locf = device_infer.locf
+
+    def keep_biggest(x):
+        if not biggest or x.numel() > biggest[0].numel():
+            biggest[:] = [x.clone()]
+        return locf(x)
+
+    torch.cuda.reset_peak_memory_stats()
+    device_infer.locf = keep_biggest
+    try:
+        (bits, over), t_warm, n = counted(lambda: device_core.core_check(
+            h, p.n_keys, device=dev))
+    finally:
+        device_infer.locf = locf
+    checks = [t_warm]
+    for _ in range(3):
+        (bits, over), t, n = counted(lambda: device_core.core_check(
+            h, p.n_keys, device=dev))
+        checks.append(t)
+        b = bits.cpu().tolist()
+        assert b[:12] == [0] * 12 and b[12] == 1, b
+        assert int(over) == 0
+        assert n == {"locf": LOCF_PER_CHECK, "seg_or": 0}, n
+    best = min(checks[1:])
+    log(f"[11a] core_check: bits {b}; warm-up {t_warm:.4f} s, timed "
+        f"{', '.join(f'{t:.4f}' for t in checks[1:])} s; "
+        f"{N_10M / best:.1f} txns/s; launches per check {n}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+
+    # ---- 11b. each kernel at the 10M shapes -------------------------------
+    # once each, bit for bit against the plain version; times from CUDA
+    # events around single calls (at these sizes the launch gap is noise)
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    x = biggest.pop()
+    assert x.numel() == SHAPES_10M[2], x.shape
+    assert torch.equal(fill.locf_cuda(x), fill.locf_plain(x)), "locf 10M"
+    log(f"[11b] locf on 11a's largest fill input (n = {x.numel()} int32): "
+        f"kernel == plain version, bit for bit; kernel "
+        f"{call_ms(lambda: fill.locf_cuda(x), reps=5):.4f} ms, bound "
+        f"{bound(8 * x.numel(), x.numel(), rate)[0]:.4f} ms")
+    del x
+    torch.cuda.empty_cache()
+    n_rows, k = 2 * SHAPES_10M[0], 128    # the label plane at 10M
+    gen = torch.Generator(device=dev).manual_seed(11)
+    v = torch.empty((n_rows, k), dtype=torch.int8, device=dev)
+    step = 1 << 22                        # rows per slice of random draws
+    for i in range(0, n_rows, step):
+        v[i:i + step] = (torch.rand(min(step, n_rows - i), k, device=dev,
+                                    generator=gen) < 0.05).to(torch.int8)
+    s = torch.rand(n_rows, device=dev, generator=gen) < 0.01
+    s[0] = True
+    seg_b, _ = bound(2 * v.numel() + n_rows, v.numel(), rate)
+    for excl in (False, True):
+        assert torch.equal(scan.seg_or_cuda(v, s, exclusive=excl),
+                           scan.seg_or_plain(v, s, exclusive=excl)), \
+            ("seg_or 10M", excl)
+        torch.cuda.empty_cache()
+        t = call_ms(lambda: scan.seg_or_cuda(v, s, exclusive=excl), reps=5)
+        log(f"[11b] seg_or on a ({n_rows}, {k}) int8 plane ({v.numel()} "
+            f"elements), {'exclusive' if excl else 'inclusive'}: kernel == "
+            f"plain version, bit for bit; kernel {t:.4f} ms, bound "
+            f"{seg_b:.4f} ms")
+    del v, s
+    torch.cuda.empty_cache()
+
+    # ---- 11d. the checker API at 10M, on 11a's IR -------------------------
+    pads = Split((("pad", device_infer, "pad_packed"),
+                  ("pad", list_append, "pad_packed")))
+    torch.cuda.reset_peak_memory_stats()
+    with pads:
+        r, t, n = counted(lambda: list_append.check(
+            ir, ["strict-serializable"], _force_no_fallback=True,
+            device=dev))
+    assert r["valid?"] is True and r["anomaly-types"] == [], r
+    assert "degraded" not in r, r
+    assert pads.calls["pad"] == 0, pads.calls
+    log(f"[11d] list_append.check on 11a's HistoryIR, strict-serializable: "
+        f"valid in {t:.4f} s, pad_packed calls {pads.calls['pad']}, "
+        f"launches {n}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    del ir, h
+    torch.cuda.empty_cache()
+
+    # ---- 11c. stale 10M ---------------------------------------------------
+    t0 = time.perf_counter()
+    ps = stale_reads(p)
+    t_stale = time.perf_counter() - t0
+    del p
+    hs, t_pad = wall_s(lambda: device_infer.pad_packed(ps, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    ks = []                      # the budget of each sweep the check ran
+    verdict = device_core._verdict
+    device_core._verdict = lambda out, k, r: ks.append(k) or \
+        verdict(out, k, r)
+    try:
+        (bits, over), t_cyc, n = counted(
+            lambda: device_core.core_check_exact(
+                hs, ps.n_keys, max_k=MAX_K_10M, device=dev))
+    finally:
+        device_core._verdict = verdict
+    b = bits.cpu().tolist()
+    assert b[0:9] == [0] * 9 and b[9:12] == [1, 1, 1] and b[12] == 1, b
+    assert int(over) == 0
+    assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
+    log(f"[11c] {N_STALE} stale reads at {N_10M} txns (made in {t_stale:.2f} "
+        f"s, padded in {t_pad:.2f} s): core_check_exact from max_k "
+        f"{MAX_K_10M}, sweeps at max_k {ks}: bits {b}, overflow "
+        f"{int(over)}, {t_cyc:.4f} s; launches {n}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    del hs, ps
+    torch.cuda.empty_cache()
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
+
+
 def compaction(device_wgl, search) -> None:
     """JAX's compaction as written, `.at[tgt].max(arange)` as one
     `scatter_reduce_` onto F + 1 rows with every dropped child aimed at
@@ -1840,6 +2189,81 @@ def closed_predicate_histories():
         (ins_a + rp_all, ins_a + [("rp", "all", {"a": 1, "b": 2})]),
         (ins_b + rp_all, ins_b + [("rp", "all", {"a": 1, "b": 2})])), \
         ["read-committed"], False
+
+
+# ---- phase 10 corpora: the builders of tests/test_queue_checkers.py,
+# copied onto the port's workloads (this script may not import the JAX
+# package); tests/test_torch_queue_workloads.py pins them equal
+
+
+def sim_kafka(seed, *, ops=80, n_clients=3, freeze=False, gen_kw=None,
+              **knobs):
+    """A deterministic single-threaded kafka sim: seeded generator,
+    seeded per-client adversary rngs, no scheduler noise — the corpus IS
+    a function of (seed, knobs)."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import history
+    from jepsen_tpu_torch.workloads import kafka
+
+    rng = random.Random(seed)
+    st = kafka.KafkaStore()
+    st.freeze_commits = freeze
+    clients = [kafka.KafkaClient(st, rng=random.Random(seed * 100 + i),
+                                 **knobs)
+               for i in range(n_clients)]
+    for c in clients:
+        c.member = st.new_member()
+    g = kafka.gen(rng=rng, **(gen_kw or KAFKA_GEN))
+    raw, idx = [], 0
+    for i in range(ops):
+        c = clients[i % n_clients]
+        op = dict(g(None, None), process=i % n_clients, index=idx,
+                  type="invoke")
+        idx += 1
+        raw.append(op)
+        done = dict(c.invoke(None, dict(op)), index=idx)
+        idx += 1
+        raw.append(done)
+    return history(raw, reindex=False)
+
+
+def sim_mem_queue(seed, *, ops=60, drain=True, **knobs):
+    """Enqueues of fresh values and dequeues, half and half, from three
+    processes on one `MemClient`; with `drain`, a fourth process then
+    dequeues until the queue is empty."""
+    import random
+
+    from jepsen_tpu_torch.history.ops import history
+    from jepsen_tpu_torch.workloads.mem import MemClient, MemStore
+
+    rng = random.Random(seed)
+    mc = MemClient(MemStore(), rng=random.Random(seed + 1),
+                   **knobs).open(None, "n1")
+    raw, idx, counter = [], 0, 0
+    for i in range(ops):
+        if rng.random() < 0.5:
+            op = {"f": "enqueue", "value": counter}
+            counter += 1
+        else:
+            op = {"f": "dequeue", "value": None}
+        op = dict(op, process=i % 3, index=idx, type="invoke")
+        idx += 1
+        raw.append(op)
+        out = dict(mc.invoke(None, dict(op)), index=idx)
+        idx += 1
+        raw.append(out)
+    while drain:
+        op = {"f": "dequeue", "value": None, "process": 3,
+              "index": idx, "type": "invoke"}
+        idx += 1
+        raw.append(op)
+        out = dict(mc.invoke(None, dict(op)), index=idx)
+        idx += 1
+        raw.append(out)
+        if out["type"] == "fail":
+            break
+    return history(raw, reindex=False)
 
 
 def walk(a, b, path=""):

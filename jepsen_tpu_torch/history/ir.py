@@ -13,6 +13,8 @@ that also memoizes
   `checkers.invariants.packed.infer_rw`) shared by the predicate and
   session invariants checkers;
 - the bank balance matrix (`bank`, a ``PackedBank``) per account set;
+- the queue-family packing (`queue`: ``"kafka"`` -> ``PackedKafka``,
+  ``"fifo"`` -> ``PackedFifo``);
 - the Knossos entry table (`lin_ops`, `knossos.prep.prepare`'s LinOp
   rows), which `knossos.analysis` takes from an IR it is handed.
 
@@ -24,7 +26,7 @@ and pair index, so every consumer that only needs a History keeps working.
 The JAX package books each section's build time into its telemetry spans;
 the port has no telemetry module, so the build times stay on the IR as a
 plain dict, :attr:`HistoryIR.build_s`.  The JAX sections whose consumers
-are not ported yet (`queue`, `bucket_class`) are left out.
+are not ported yet (`bucket_class`) are left out.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ class HistoryIR(History):
         self._lin_ops: Optional[List[Any]] = None
         self._rw_inf = None
         self._bank: Dict[Optional[Tuple[str, ...]], Any] = {}
+        self._queue: Dict[str, Any] = {}
         #: seconds each section's build took, by section name (memoized
         #: hits add nothing)
         self.build_s: Dict[str, float] = {}
@@ -157,6 +160,21 @@ class HistoryIR(History):
             pb = self._bank[key] = self._booked(
                 "bank", lambda: pack_bank(self, accounts))
         return pb
+
+    def queue(self, kind: str = "kafka"):
+        """The queue-family packing: ``"kafka"`` -> PackedKafka
+        (send/poll/epoch columns + derived orders), ``"fifo"`` ->
+        PackedFifo (enqueue/dequeue counting columns + the
+        per-consumer dequeue order)."""
+        pq = self._queue.get(kind)
+        if pq is None:
+            from jepsen_tpu_torch.checkers.queue import packed as q_packed
+
+            build = (q_packed.pack_kafka if kind == "kafka"
+                     else q_packed.pack_fifo)
+            pq = self._queue[kind] = self._booked(
+                f"queue:{kind}", lambda: build(self))
+        return pq
 
     def lin_ops(self) -> List[Any]:
         """The knossos linearizability entry table (LinOp rows)."""

@@ -210,6 +210,14 @@ r = session.check(sh, device="cpu")
 assert r["valid?"] is False and r["anomaly-types"] == [
     "read-your-writes-violation"], r
 assert "session" in invariants.MODELS and closed_predicate.check
+from jepsen_tpu_torch.checkers.queue import MODELS, fifo, kafka
+r = kafka.check(HistoryIR(chip_smoke.sim_kafka(0, torn_p=0.5)), device="cpu")
+assert r["valid?"] is False and "lost-write" in r["anomaly-types"], r
+q = chip_smoke.sim_mem_queue(0, reorder_dequeue_p=0.5)
+r = fifo.check(q, fifo=True, device="cpu")
+assert r["anomaly-types"] == ["queue-fifo-violation"], r
+assert fifo.check(q, fifo=True, use_device=False) == r
+assert set(MODELS) == {"kafka", "total-queue"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
