@@ -153,12 +153,42 @@ Phases, each asserting; any failure exits non-zero:
         sweep asks for more than the card holds): G-single cycles in
         projections 2-4, converged; the budget of each sweep, seg-OR
         launches, time and peak device memory.
+ 12. BASELINE config 5 on one card: 16 of its 100 histories, each
+     `packed_la_history(1M, n_keys=125,000, mops_per_txn=4,
+     read_frac=0.25, seed=i)` (`scripts/config5_batch.py`'s generator and
+     key rule), every 4th with a failed writer (`seed_invalid`, a copy of
+     that script's) and history 2 with 64 stale reads:
+     a. `parallel.batch.check_batch_checkpointed` in groups of 8, whose
+        `on_group` raises after the first durable group (the simulated
+        crash); the call again resumes and computes group 1 only; the
+        failed writers and the stale reads invalid, the rest valid, all
+        exact, and every row's dict equal to the same history alone
+        through `pad_packed` and `core_check_exact`;
+     b. each group's wall time split into the pad (host, with the copy
+        of the stack to the card) and the card, txns/s over the 16M txns,
+        peak device memory and the launches of both kernels;
+     c. card == CPU: `check_batch` of 4 histories of 65,536 txns (two
+        valid, a failed writer, stale reads);
+ 13. a stored run streamed to the card through `store` and
+     `checkers.elle.stream`:
+     a. `synth.la_history(n_txns=100,000, n_keys=12,500, concurrency=10)`
+        (200,000 ops) saved with `store.save_0` into a temporary store and
+        checked by `stream.check_stored`: valid, equal to `core_check_exact`
+        on `pad_packed(pack_txns(h))`; the save, the staging (decode,
+        pack and copies) against the decode and pack alone, the check,
+        the chunks, peak device memory and launches;
+     b. the same history with `inject_wr_cycle`: invalid, G1c;
+     c. `rw_history(n_txns=50,000)` through
+        `check_stored(workload="rw-register")`, equal to `device_rw.check`;
+     d. card == CPU at 16,384 txns: every staged array and the dicts of
+        both routes.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
-9 and each counted check of phase 11, and read just after each; the
-kernels' `launches` are their sum (phases 8 and 10 assert that they
-launch neither).  The command's total time,
+9, each counted check of phase 11, the first `check_batch_checkpointed`
+call of phase 12 and each `check_stored` of 13a-13c, and read just after
+each (phase 12: after the resumed call); the kernels' `launches` are
+their sum (phases 8 and 10 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.
@@ -254,6 +284,20 @@ SHAPES_10M = (1 << 24, 1 << 26, 1 << 28)
 #: a (3 * 2^26, 128) int8 plane, 24 GiB); 32 is scripts/tpu_10m.py's, and
 #: `core_check_exact` grows it while the sweep overflows
 MAX_K_10M = 32
+N_C5 = 16                    # 12: of BASELINE config 5's 100 histories
+C5_GROUP = 8                 # check_batch_checkpointed's group size
+C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
+C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
+C5_STALE_AT = 2              # ... and this one N_STALE stale reads
+N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
+#: 13a: 100,000 txns, half the size first planned: at 200,000 the whole
+#: script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3 host,
+#: phase 13 187.5 s of it, most of that the Python decode and pack of the
+#: stored ops (PERF.md)
+STREAM_KW = dict(n_txns=100_000, n_keys=12_500, concurrency=10, seed=0)
+STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
+N_STREAM_CMP = 16_384        # 13d: card == CPU
+
 T_START = time.perf_counter()
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
@@ -752,6 +796,12 @@ def main(argv=None) -> int:
 
     # ---- 11. the 10M-txn rung (BASELINE config 4) on the card -------------
     check_10m(dev, launches)
+
+    # ---- 12. batched checking (BASELINE config 5) on the card -------------
+    check_config5(dev, launches)
+
+    # ---- 13. stored runs streamed to the card -----------------------------
+    check_stream(dev, launches)
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -1712,6 +1762,274 @@ def check_10m(dev: torch.device, launches: dict) -> None:
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
 
+def check_config5(dev: torch.device, launches: dict) -> None:
+    """Phase 12: BASELINE config 5 on one card (see the module
+    docstring).  The counters are set to 0 just before the first
+    `check_batch_checkpointed` call and read just after the resumed one;
+    the sums go into the main path's `launches`."""
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch.checkers.elle import device_core, device_infer
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.parallel import batch
+
+    t12 = time.perf_counter()
+    t0 = time.perf_counter()
+    ps = [config5_history(i, N_TXNS) for i in range(N_C5)]
+    t_gen = time.perf_counter() - t0
+    invalid = [i for i in range(N_C5)
+               if i % C5_INVALID_EVERY == C5_INVALID_EVERY - 1]
+    log(f"[12a] {N_C5} histories of {N_TXNS} txns, {max(64, N_TXNS // 8)} "
+        f"keys, {C5_KW}: generated in {t_gen:.2f} s; a failed writer in "
+        f"{invalid}, {N_STALE} stale reads in {C5_STALE_AT}")
+
+    class Crash(Exception):
+        """This script's simulated crash of the checking process."""
+
+    split = Split((("pad", batch, "pad_batch"),
+                   ("card", batch, "_batched_core"),
+                   ("rerun", batch, "core_check_exact")))
+    groups = []
+
+    def record(info):
+        # each group's info with the stage times so far; the first call
+        # crashes as soon as its first group is durable
+        groups.append(dict(info, **split.s))
+        if len(groups) == 1:
+            raise Crash(info)
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_c5_")
+    ckpt = os.path.join(ckdir, "config5.ckpt")
+    try:
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with split:
+            t0 = time.perf_counter()
+            try:
+                batch.check_batch_checkpointed(ps, ckpt, group_size=C5_GROUP,
+                                               on_group=record, device=dev)
+                raise AssertionError("the simulated crash did not happen")
+            except Crash:
+                pass
+            t_crashed = time.perf_counter() - t0
+            with open(ckpt) as f:
+                durable = sum(1 for line in f if line.strip())
+            t0 = time.perf_counter()
+            out = batch.check_batch_checkpointed(
+                ps, ckpt, group_size=C5_GROUP, on_group=record, device=dev)
+            t_resumed = time.perf_counter() - t0
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for kname in launches:
+        launches[kname] += n[kname]
+    assert durable == C5_GROUP, durable
+    assert [g["group"] for g in groups] == [0, 1], groups
+    assert groups[1]["indices"] == list(range(C5_GROUP, N_C5)), groups
+    reruns = split.calls["rerun"]
+    assert n["locf"] == LOCF_PER_CHECK * (N_C5 + reruns) and \
+        n["seg_or"] > 0, n
+    for i, r in enumerate(out):
+        assert r["exact"] is True, (i, r)
+        if i in invalid:
+            assert r["valid?"] is False and r["counts"]["G1a"] > 0, (i, r)
+        elif i == C5_STALE_AT:
+            assert r["valid?"] is False and not any(r["counts"].values()) \
+                and any(r["cycles"].values()), (i, r)
+        else:
+            assert r["valid?"] is True, (i, r)
+    log(f"[12a] check_batch_checkpointed, groups of {C5_GROUP}: crashed "
+        f"after group 0 ({durable} records durable) in {t_crashed:.4f} s; "
+        f"the resumed call computed group 1 only (histories "
+        f"{groups[1]['indices'][0]}-{groups[1]['indices'][-1]}) in "
+        f"{t_resumed:.4f} s; verdicts {[r['valid?'] for r in out]}, all "
+        f"exact; exact reruns {reruns}")
+    t0 = time.perf_counter()
+    for i, p in enumerate(ps):
+        h = device_infer.pad_packed(p, device=dev)
+        b, o = device_core.core_check_exact(h, p.n_keys, device=dev)
+        alone = batch.summarize_batch_bits(b[None], o[None], None,
+                                           p.n_keys, 1)[0]
+        assert alone == out[i], (i, alone, out[i])
+        del h
+    log(f"[12a] each row's dict == the same history alone through "
+        f"pad_packed + core_check_exact ({time.perf_counter() - t0:.1f} s)")
+    # ---- 12b. where the time went -----------------------------------------
+    prev = dict.fromkeys(split.s, 0.0)
+    for g in groups:
+        d = {k: g[k] - prev[k] for k in split.s}
+        prev = {k: g[k] for k in split.s}
+        log(f"[12b] group {g['group']}: {len(g['indices'])} histories, "
+            f"wall {g['wall_s']} s: pad (host, with the copy of the stack) "
+            f"{d['pad']:.4f} s, card {d['card']:.4f} s, exact reruns "
+            f"{d['rerun']:.4f} s")
+    t_groups = sum(g["wall_s"] for g in groups)
+    log(f"[12b] {N_C5 * N_TXNS} txns: {N_C5 * N_TXNS / t_groups:.1f} txns/s "
+        f"over the groups' wall time ({t_groups:.2f} s), "
+        f"{N_C5 * N_TXNS / (t_crashed + t_resumed):.1f} txns/s over both "
+        f"calls ({t_crashed + t_resumed:.4f} s, digests and caps included); "
+        f"card only {split.s['card']:.4f} s, "
+        f"{N_C5 * N_TXNS / split.s['card']:.1f} txns/s; "
+        f"max_memory_allocated {peak} B; launches {n}")
+    del ps, out
+    torch.cuda.empty_cache()
+    # ---- 12c. card == CPU on a mixed batch -------------------------------
+    small = [config5_history(i, n_txns=N_C5_CMP) for i in range(4)]
+    (got, t_card) = wall_s(lambda: batch.check_batch(small, device=dev))
+    t0 = time.perf_counter()
+    want = batch.check_batch(small, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    assert got == want, (got, want)
+    assert [r["valid?"] for r in got] == [True, True, False, False], got
+    log(f"[12c] check_batch of 4 x {N_C5_CMP} txns (verdicts "
+        f"{[r['valid?'] for r in got]}): card == CPU; card {t_card:.4f} s, "
+        f"CPU {t_cpu:.4f} s")
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+
+
+def check_stream(dev: torch.device, launches: dict) -> None:
+    """Phase 13: stored runs streamed to the card (see the module
+    docstring).  The counters are set to 0 just before each
+    `check_stored` of 13a-13c and read just after; the sums go into the
+    main path's `launches`."""
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers.elle import (
+        device_core,
+        device_infer,
+        device_rw,
+        stream,
+    )
+    from jepsen_tpu_torch.history.soa import TxnPacker, pack_txns
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.parallel import batch
+    from jepsen_tpu_torch.workloads import synth
+
+    t13 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    # check_stored's time: the staging (decode, pack and the copies to the
+    # card, which overlap the host work) and the check on the card
+    split = Split((("staging", stream, "stage_chunks"),
+                   ("check", stream, "core_check_exact"),
+                   ("check", device_rw, "check")))
+
+    def counted(fn):
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        out, t = wall_s(fn)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return out, t, n, torch.cuda.max_memory_allocated()
+
+    def save(name, h):
+        t = {"name": name, "store-dir": base, "history": h}
+        t0 = time.perf_counter()
+        store.save_0(t)
+        return store.test_dir(t), time.perf_counter() - t0
+
+    def alone(h, device=dev):
+        """`check_stored`'s dict for `h` from `pack_txns`, `pad_packed`
+        and `core_check_exact`."""
+        p = pack_txns(h)
+        b, o = device_core.core_check_exact(
+            device_infer.pad_packed(p, device=device), p.n_keys,
+            device=device)
+        row = batch.summarize_batch_bits(b[None], o[None], None, p.n_keys,
+                                         1)[0]
+        assert row["exact"], row
+        return dict(row, **{"n-txns": p.n_txns})
+
+    try:
+        # ---- 13a. a valid stored run -------------------------------------
+        t0 = time.perf_counter()
+        h = synth.la_history(**STREAM_KW)
+        t_gen = time.perf_counter() - t0
+        d, t_save = save("stream", h)
+        n_chunks = len(store.load(d)["history"]._chunks)
+        t0 = time.perf_counter()
+        pk = TxnPacker()
+        for ops in store.load(d)["history"].iter_chunks():
+            pk.feed(ops)
+        t_pack = time.perf_counter() - t0
+        with split:
+            r, t_check, n, peak = counted(
+                lambda: stream.check_stored(d, device=dev))
+        assert r == alone(h) and r["valid?"] is True, r
+        assert n["locf"] > 0, n
+        log(f"[13a] la_history({STREAM_KW}): {len(h)} ops generated in "
+            f"{t_gen:.2f} s; save_0 {t_save:.2f} s, {n_chunks} chunks of "
+            f"{store.format.CHUNK_SIZE} ops; decode and pack alone "
+            f"{t_pack:.4f} s; check_stored valid in {t_check:.4f} s: "
+            f"{split}, == pad_packed + core_check_exact; launches {n}; "
+            f"max_memory_allocated {peak} B")
+        # ---- 13b. an injected wr cycle -----------------------------------
+        t0 = time.perf_counter()
+        assert synth.inject_wr_cycle(h)
+        t_inject = time.perf_counter() - t0
+        d, t_save = save("stream-wr", h)
+        with split:
+            r, t_check, n, peak = counted(
+                lambda: stream.check_stored(d, device=dev))
+        assert r["valid?"] is False and r["cycles"]["G1c"], r
+        assert r == alone(h), r
+        del h
+        log(f"[13b] the same with inject_wr_cycle ({t_inject:.2f} s): "
+            f"save_0 {t_save:.2f} s; check_stored {t_check:.4f} s: "
+            f"{split}; valid? False, cycles {r['cycles']}; launches {n}; "
+            f"max_memory_allocated {peak} B")
+        # ---- 13c. rw-register --------------------------------------------
+        t0 = time.perf_counter()
+        rw = synth.rw_history(**STREAM_RW_KW)
+        t_gen = time.perf_counter() - t0
+        d, t_save = save("stream-rw", rw)
+        with split:
+            r, t_check, n, peak = counted(lambda: stream.check_stored(
+                d, workload="rw-register", device=dev))
+        want = device_rw.check(pack_txns(rw, "rw-register"), device=dev)
+        assert r == dict(want, **{"n-txns": r["n-txns"]}), (r, want)
+        assert r["valid?"] is True, r
+        log(f"[13c] rw_history({STREAM_RW_KW}): generated in {t_gen:.2f} s, "
+            f"save_0 {t_save:.2f} s; check_stored(workload='rw-register') "
+            f"valid in {t_check:.4f} s: {split}, == device_rw.check of "
+            f"pack_txns; "
+            f"launches {n}; max_memory_allocated {peak} B")
+        del rw
+        # ---- 13d. card == CPU --------------------------------------------
+        kw = dict(n_txns=N_STREAM_CMP, n_keys=N_STREAM_CMP // 8,
+                  concurrency=10, seed=1)
+        h = synth.la_history(**kw)
+        assert synth.inject_wr_cycle(h)
+        d, _ = save("stream-cmp", h)
+        staged = [stream.stage_chunks(store.load(d)["history"].iter_chunks(),
+                                      device=x)[0] for x in (dev, "cpu")]
+        fields = [device_infer.padded_to_numpy(x) for x in staged]
+        assert fields[0][1] == fields[1][1], fields
+        for f in device_infer.DATA_FIELDS:
+            a, b = fields[0][0][f], fields[1][0][f]
+            assert (a is None and b is None) or np.array_equal(a, b), f
+        got = stream.check_stored(d, device=dev)
+        assert got == stream.check_stored(d, device="cpu") == alone(
+            h, "cpu") and got["valid?"] is False, got
+        rw = synth.rw_history(**dict(STREAM_RW_KW, n_txns=N_STREAM_CMP))
+        d, _ = save("stream-rw-cmp", rw)
+        got = stream.check_stored(d, workload="rw-register", device=dev)
+        assert got == stream.check_stored(d, workload="rw-register",
+                                          device="cpu"), got
+        log(f"[13d] {N_STREAM_CMP} txns: every staged array and the "
+            f"check_stored dicts (list-append with a wr cycle, rw-register) "
+            f"equal on card and CPU")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+
+
 def compaction(device_wgl, search) -> None:
     """JAX's compaction as written, `.at[tgt].max(arange)` as one
     `scatter_reduce_` onto F + 1 rows with every dropped child aimed at
@@ -2264,6 +2582,53 @@ def sim_mem_queue(seed, *, ops=60, drain=True, **knobs):
         if out["type"] == "fail":
             break
     return history(raw, reindex=False)
+
+
+# ---- phase 12 corpus: BASELINE config 5's histories, with copies of
+# scripts/config5_batch.py's generator arguments and `seed_invalid` (this
+# script may not import the JAX package); tests/test_torch_batch.py pins
+# them equal
+
+
+def seed_invalid(p):
+    """Flip one observed append's writer txn to FAIL: an aborted read
+    (G1a) every reader of that value exposes.  Invalid AND convergent: a
+    failed writer only flips counts, so the batched verdict stays exact
+    with no rerun.  Mutates `p` and returns it."""
+    from jepsen_tpu_torch.history.soa import MOP_READ, TXN_FAIL, TXN_OK
+
+    kinds = np.asarray(p.mop_kind)
+    keys = np.asarray(p.mop_key)
+    vals = np.asarray(p.mop_val)
+    txns = np.asarray(p.mop_txn)
+    app = np.flatnonzero(kinds != MOP_READ)
+    reads = np.flatnonzero((kinds == MOP_READ) & (p.mop_rd_len > 0))
+    for r in reads[:500]:
+        start, ln = int(p.mop_rd_start[r]), int(p.mop_rd_len[r])
+        for off in range(ln):
+            vid = p.rd_elems[start + off]
+            for wi in app[(vals[app] == vid) & (keys[app] == keys[r])]:
+                wt = int(txns[wi])
+                if wt != int(txns[r]) and p.txn_type[wt] == TXN_OK \
+                        and p.txn_type[int(txns[r])] == TXN_OK:
+                    p.txn_type[wt] = TXN_FAIL
+                    return p
+    raise AssertionError("no seedable observed append found")
+
+
+def config5_history(i: int, n_txns: int):
+    """History `i` of phase 12's batch: `scripts/config5_batch.py`'s
+    generator and key rule; every `C5_INVALID_EVERY`-th seeded invalid
+    (`seed_invalid`), history `C5_STALE_AT` with `N_STALE` stale reads."""
+    from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    p = packed_la_history(n_txns, n_keys=max(64, n_txns // 8), seed=i,
+                          **C5_KW)
+    if i % C5_INVALID_EVERY == C5_INVALID_EVERY - 1:
+        return seed_invalid(p)
+    if i == C5_STALE_AT:
+        return stale_reads(p)
+    return p
 
 
 def walk(a, b, path=""):

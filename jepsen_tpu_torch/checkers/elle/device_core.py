@@ -26,7 +26,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from jepsen_tpu_torch import backend
+from jepsen_tpu_torch import backend, resilience
 from jepsen_tpu_torch.checkers.elle.device_infer import (
     PaddedLA,
     infer,
@@ -112,15 +112,28 @@ core_check_staged = core_check
 
 
 def grow_until_exact(run: Callable[[int, int], tuple], max_k: int = 128,
-                     max_rounds: int = 64, round_to: int = 1):
+                     max_rounds: int = 64, round_to: int = 1, deadline=None,
+                     site: str = "elle.core-check", plan=None, policy=None):
     """Host-side rebatch policy.  `run(max_k, max_rounds)` -> (bits,
     overflowed).  If the sweep overflows its backward-edge budget, retry
     with the budget grown past the observed count (rounded up to a
     multiple of `round_to`); if the fixpoint hits max_rounds, retry with
     doubled rounds.  Gives up (returning the last, inexact result) only at
-    the caps."""
+    the caps.
+
+    `deadline` (a `resilience.Deadline`) is polled before each try: the
+    grow loop is the unbounded part of the check, and expiry raises
+    `DeadlineExceeded`.  Each try runs `run` through the resilience guard
+    at `site` with `plan` and `policy`, so transient device failures
+    retry and a fault plan fires there.  Callers must not wrap `run` in a
+    second `device_call`: nested guards multiply retries and advance the
+    plan's call counter twice, which breaks its deterministic replay."""
     while True:
-        bits, over = run(max_k, max_rounds)
+        if deadline is not None:
+            deadline.check("elle.grow-until-exact")
+        bits, over = resilience.device_call(
+            site, run, max_k, max_rounds, deadline=deadline, plan=plan,
+            policy=policy)
         over_i = int(over)
         conv = int(bits[-1]) == 1
         if over_i > 0 and max_k < MAX_K_CAP:
@@ -138,12 +151,15 @@ def grow_until_exact(run: Callable[[int, int], tuple], max_k: int = 128,
 
 
 def core_check_exact(h: PaddedLA, n_keys: int, max_k: int = 128,
-                     max_rounds: int = 64,
+                     max_rounds: int = 64, deadline=None,
                      device: backend.DeviceLike = None):
     """core_check with host-side rebatching until exact.  Returns
     (bits, overflowed) like core_check; exact iff bits[-1] == 1 and
-    overflowed == 0.  Inference does not depend on the budget, so it runs
-    once and only the sweep is retried."""
+    overflowed == 0.  `deadline` bounds the grow loop (see
+    `grow_until_exact`).  Inference does not depend on the budget, so it
+    runs once and only the sweep is retried; each try runs under the
+    site ``elle.core-check``, the JAX package's site for its fused check,
+    so a fault plan fires at the same call in both packages."""
     out = infer(to_device(h, backend.resolve(device)), n_keys)
     return grow_until_exact(lambda k, r: _verdict(out, k, r), max_k,
-                            max_rounds)
+                            max_rounds, deadline=deadline)

@@ -1,12 +1,16 @@
 """Synthetic histories (the port's copy of parts of
 `jepsen_tpu/workloads/synth.py`).
 
-`packed_la_history` and `packed_rw_history` are copies of the vectorized
-generators: they emit `PackedTxns` arrays directly, the bench path for
-histories too large to build as Python Op objects.  `rw_history` is the
-op-level rw-register simulator, and `lin_register_history` the
-linearizable r/w/cas register simulator of the Knossos tests (BASELINE
-config 1).  Tests pin each equal to the original.
+`la_history` simulates a strict-serializable list-append database at
+the op level, and the injectors (`inject_g1a`, `inject_g1b`,
+`inject_wr_cycle`, `inject_rw_cycle`) make surgical anomalies in its
+histories.  `packed_la_history` and `packed_rw_history` are copies of
+the vectorized generators: they emit `PackedTxns` arrays directly, the
+bench path for histories too large to build as Python Op objects.
+`rw_history` is the op-level rw-register simulator, and
+`lin_register_history` the linearizable r/w/cas register simulator of
+the Knossos tests (BASELINE config 1).  Tests pin each equal to the
+original.
 """
 
 from __future__ import annotations
@@ -33,6 +37,225 @@ RW_KW = dict(concurrency=10, mops_per_txn=3, read_frac=0.5, seed=11)
 def rw_keys_for(n_txns: int) -> int:
     """Config 3's key count for `n_txns` (`scripts/aot_warm.py`)."""
     return max(64, n_txns // 8)
+
+
+def la_history(n_txns: int = 100, n_keys: int = 5, concurrency: int = 5,
+               max_mops: int = 4, read_prob: float = 0.5,
+               fail_prob: float = 0.0, info_prob: float = 0.0,
+               multi_append_prob: float = 0.1,
+               seed: int = 0) -> History:
+    """Simulate a strict-serializable list-append history.
+
+    Each process runs txns one at a time; a txn's effects apply atomically at
+    a commit point between its invoke and completion, so the result is
+    always valid (strict-serializable) before any injector runs.
+    """
+    rng = np.random.default_rng(seed)
+    db: Dict[int, List[int]] = {k: [] for k in range(n_keys)}
+    append_log: Dict[int, List[int]] = {k: [] for k in range(n_keys)}
+    next_val = 1
+    ops: List[Op] = []
+    open_txn: Dict[int, Tuple[List, int]] = {}  # process -> (mops, invoke idx)
+    committed = 0
+    t = 0
+
+    def gen_mops():
+        nonlocal next_val
+        mops = []
+        n = int(rng.integers(1, max_mops + 1))
+        for _ in range(n):
+            k = int(rng.integers(0, n_keys))
+            if rng.random() < read_prob:
+                mops.append(["r", k, None])
+            else:
+                mops.append(["append", k, next_val])
+                next_val += 1
+                if rng.random() < multi_append_prob:
+                    mops.append(["append", k, next_val])
+                    next_val += 1
+        return mops
+
+    while committed < n_txns or open_txn:
+        p = int(rng.integers(0, concurrency))
+        t += 1
+        if p not in open_txn:
+            if committed + len(open_txn) >= n_txns:
+                # drain: complete somebody instead
+                if not open_txn:
+                    break
+                p = list(open_txn.keys())[int(rng.integers(0, len(open_txn)))]
+            else:
+                mops = gen_mops()
+                ops.append(Op(type=INVOKE, process=p, f="txn",
+                              value=[list(m) for m in mops], time=t))
+                open_txn[p] = (mops, len(ops) - 1)
+                continue
+        # complete p's open txn
+        mops, _ = open_txn.pop(p)
+        r = rng.random()
+        if r < fail_prob:
+            ops.append(Op(type=FAIL, process=p, f="txn",
+                          value=[list(m) for m in mops], time=t))
+        else:
+            is_info = r < fail_prob + info_prob
+            apply_writes = (not is_info) or rng.random() < 0.5
+            filled = []
+            state_snapshot = {k: list(v) for k, v in db.items()} \
+                if not apply_writes else db
+            target = db if apply_writes else state_snapshot
+            for m in mops:
+                if m[0] == "append":
+                    target[m[1]].append(m[2])
+                    if apply_writes:
+                        append_log[m[1]].append(m[2])
+                    filled.append(["append", m[1], m[2]])
+                else:
+                    filled.append(["r", m[1], list(target[m[1]])])
+            if is_info:
+                ops.append(Op(type=INFO, process=p, f="txn",
+                              value=[list(m) for m in mops], time=t))
+            else:
+                ops.append(Op(type=OK, process=p, f="txn", value=filled, time=t))
+        committed += 1
+    return History(ops)
+
+
+# ---------------------------------------------------------------------------
+# Anomaly injectors: surgical edits on a valid history.
+# ---------------------------------------------------------------------------
+
+
+def _ok_txns(h: History):
+    return [op for op in h.ops if op.type == OK and op.f == "txn"]
+
+
+def _appends(op: Op):
+    return [(i, m) for i, m in enumerate(op.value or []) if m[0] == "append"]
+
+
+def _reads(op: Op):
+    return [(i, m) for i, m in enumerate(op.value or [])
+            if m[0] == "r" and m[2] is not None]
+
+
+def inject_g1a(h: History, rng=None) -> bool:
+    """Flip an observed writer ok->fail: its reads become aborted reads."""
+    observed = set()
+    for op in _ok_txns(h):
+        for _, m in _reads(op):
+            observed.update(m[2])
+    for op in _ok_txns(h):
+        vals = [m[2] for _, m in _appends(op)]
+        if any(v in observed for v in vals):
+            op.type = FAIL
+            return True
+    return False
+
+
+def inject_g1b(h: History) -> bool:
+    """Truncate a read so it ends at an intermediate (non-final) append."""
+    # find a txn appending twice to one key
+    for wop in _ok_txns(h):
+        per_key: Dict[int, List[int]] = {}
+        for _, m in _appends(wop):
+            per_key.setdefault(m[1], []).append(m[2])
+        for k, vs in per_key.items():
+            if len(vs) < 2:
+                continue
+            inter = vs[0]
+            for rop in _ok_txns(h):
+                if rop is wop:
+                    continue
+                for _, m in _reads(rop):
+                    if m[1] == k and inter in m[2] and m[2][-1] != inter:
+                        # truncating keeps this read a prefix of longer reads,
+                        # so the only injected anomaly is the G1b itself
+                        m[2][:] = m[2][: m[2].index(inter) + 1]
+                        return True
+    return False
+
+
+def _touched_keys(op: Op):
+    return {m[1] for m in (op.value or [])}
+
+
+def inject_wr_cycle(h: History) -> bool:
+    """Create a pure wr cycle (G1c): T1 reads T2's append, T2 reads T1's."""
+    oks = _ok_txns(h)
+    # find two txns each having an append, in different keys
+    cand = [(op, _appends(op)[0][1]) for op in oks if _appends(op)]
+    for i in range(len(cand)):
+        for j in range(i + 1, len(cand)):
+            (t1, m1), (t2, m2) = cand[i], cand[j]
+            k1, v1 = m1[1], m1[2]
+            k2, v2 = m2[1], m2[2]
+            # keys must be disjoint from the other txn's touched keys, or the
+            # appended read would break the txn's own internal consistency
+            if k1 == k2 or k2 in _touched_keys(t1) or k1 in _touched_keys(t2):
+                continue
+            p1 = _prefix_through(h, k1, v1)
+            p2 = _prefix_through(h, k2, v2)
+            if p1 is None or p2 is None:
+                continue
+            t1.value.append(["r", k2, p2])
+            t2.value.append(["r", k1, p1])
+            return True
+    return False
+
+
+def inject_rw_cycle(h: History) -> bool:
+    """Create a write-skew-style cycle of two rw edges (G2-item).
+
+    T1 reads key k1 missing T2's later append; T2 reads key k2 missing T1's
+    append: rw edges T1->T2 and T2->T1.
+    """
+    oks = _ok_txns(h)
+    cand = [(op, _appends(op)[0][1]) for op in oks if _appends(op)]
+    for i in range(len(cand)):
+        for j in range(i + 1, len(cand)):
+            (t1, m1), (t2, m2) = cand[i], cand[j]
+            k1, v1 = m1[1], m1[2]
+            k2, v2 = m2[1], m2[2]
+            if k1 == k2 or k2 in _touched_keys(t1) or k1 in _touched_keys(t2):
+                continue
+            p1 = _prefix_before(h, k1, v1)
+            p2 = _prefix_before(h, k2, v2)
+            if p1 is None or p2 is None:
+                continue
+            t1.value.append(["r", k2, p2])  # T1 misses v2 -> rw T1->T2
+            t2.value.append(["r", k1, p1])  # T2 misses v1 -> rw T2->T1
+            return True
+    return False
+
+
+def _key_order(h: History, k: int) -> List[int]:
+    longest: List[int] = []
+    for op in _ok_txns(h):
+        for _, m in _reads(op):
+            if m[1] == k and len(m[2]) > len(longest):
+                longest = list(m[2])
+    return longest
+
+
+def _prefix_through(h: History, k: int, v: int) -> Optional[List[int]]:
+    order = _key_order(h, k)
+    if v in order:
+        return order[: order.index(v) + 1]
+    # v unobserved: extend the longest observed order with v (stays compatible
+    # only if v was appended after everything observed — best effort)
+    return None
+
+
+def _prefix_before(h: History, k: int, v: int) -> Optional[List[int]]:
+    order = _key_order(h, k)
+    if v in order:
+        return order[: order.index(v)]
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Fast vectorized packed-history generator (bench path).
+# ---------------------------------------------------------------------------
 
 
 def packed_la_history(n_txns: int, n_keys: int, concurrency: int = 10,

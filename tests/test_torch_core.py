@@ -7,8 +7,10 @@ and overflow on every corpus (the JAX side on its default branch here on
 the CPU), the helpers must round-trip both packages' arrays exactly,
 `packed_la_history` must equal the original, and importing the port and
 running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
-`rw_register.check`, Knossos, the native `wgl.check`, `session.check`)
-must load neither `jax` nor `jepsen_tpu`.
+`rw_register.check`, Knossos, the native `wgl.check`, `session.check`,
+the queue checks, `stream.check_stored` and `batch.check_batch`) must
+load neither `jax` nor `jepsen_tpu`.  The deadline and fault-plan sites
+of `core_check_exact` are the JAX package's.
 """
 
 import dataclasses
@@ -21,13 +23,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from jepsen_tpu import resilience as jres  # noqa: E402
 from jepsen_tpu.checkers.elle import device_core as jdc  # noqa: E402
 from jepsen_tpu.checkers.elle import device_infer as jdi  # noqa: E402
 from jepsen_tpu.history import soa as jsoa  # noqa: E402
+from jepsen_tpu.resilience import faults as jfaults  # noqa: E402
 from jepsen_tpu.workloads import synth  # noqa: E402
+from jepsen_tpu_torch import resilience as tres  # noqa: E402
 from jepsen_tpu_torch.checkers.elle import device_core as tdc  # noqa: E402
 from jepsen_tpu_torch.checkers.elle import device_infer as tdi  # noqa: E402
 from jepsen_tpu_torch.history import soa as tsoa  # noqa: E402
+from jepsen_tpu_torch.resilience import faults as tfaults  # noqa: E402
 from jepsen_tpu_torch.workloads import synth as tsynth  # noqa: E402
 from test_torch_infer import CORPORA, padded_pair  # noqa: E402
 
@@ -80,6 +86,72 @@ def test_grow_until_exact_rules():
     bits, over = tdc.grow_until_exact(run, max_k=8, max_rounds=4)
     assert calls == [(8, 4), (64, 4), (64, 8), (64, 16)]
     assert int(bits[-1]) == 1 and int(over) == 0
+
+
+def test_grow_until_exact_polls_deadline_and_guards_each_try():
+    # one guard per try at the caller's site, the deadline polled before
+    # each try: the JAX signature
+    calls = []
+
+    def run(k, r):
+        calls.append((k, r))
+        return torch.tensor([0] * 12 + [1]), torch.tensor(max(16 - k, 0))
+
+    plan = tfaults.FaultPlan(at={1: "oom"})
+    bits, over = tdc.grow_until_exact(run, max_k=8, site="parallel.batch",
+                                      plan=plan,
+                                      deadline=tres.Deadline(60))
+    assert calls == [(8, 64), (16, 64)]       # the faulted try ran again
+    assert plan.injected == [(1, "parallel.batch", "oom")]
+    with pytest.raises(tres.DeadlineExceeded, match="grow-until-exact"):
+        tdc.grow_until_exact(run, deadline=tres.Deadline(0))
+
+
+def test_core_check_exact_expired_deadline_raises_like_jax():
+    hj, ht, n_keys = padded_pair("stale-reads")
+    with pytest.raises(jres.DeadlineExceeded) as want:
+        jdc.core_check_exact(hj, n_keys, deadline=jres.Deadline(0))
+    with pytest.raises(tres.DeadlineExceeded) as got:
+        tdc.core_check_exact(ht, n_keys, deadline=tres.Deadline(0),
+                             device="cpu")
+    assert str(got.value) == str(want.value) == "elle.grow-until-exact"
+    # an unexpired deadline changes nothing
+    bits, over = tdc.core_check_exact(ht, n_keys, max_k=8,
+                                      deadline=tres.Deadline(600),
+                                      device="cpu")
+    assert bits.tolist() == \
+        np.asarray(jdc.core_check_exact(hj, n_keys, max_k=8)[0]).tolist()
+
+
+@pytest.mark.parametrize("spec", [
+    dict(at={0: "oom"}),                      # first try, retried
+    dict(at={1: "xla"}),                      # the grown try, retried
+    dict(persistent=["elle.core-check"], kinds=["device-lost"]),
+    dict(p=1.0, sites=["elle.infer"]),        # another site: never fires
+], ids=["first-try", "grown-try", "persistent", "other-site"])
+def test_core_check_exact_fault_plan_fires_at_jax_sites(spec):
+    # max_k = 8 overflows on the stale reads, so the grow loop tries
+    # twice; each try is one call of the plan in both packages
+    hj, ht, n_keys = padded_pair("stale-reads")
+    jplan, tplan = jfaults.FaultPlan(**spec), tfaults.FaultPlan(**spec)
+    want = got = None
+    with jfaults.use(jplan):
+        try:
+            want = np.asarray(jdc.core_check_exact(hj, n_keys,
+                                                   max_k=8)[0]).tolist()
+        except jfaults.FaultInjected as e:
+            want = str(e)
+    with tfaults.use(tplan):
+        try:
+            got = tdc.core_check_exact(ht, n_keys, max_k=8,
+                                       device="cpu")[0].tolist()
+        except tfaults.FaultInjected as e:
+            got = str(e)
+    assert got == want
+    assert tplan.injected == jplan.injected
+    assert tplan._n_calls == jplan._n_calls
+    if "persistent" in spec:
+        assert "site=elle.core-check call=0" in got
 
 
 def test_include_stacks_equal_to_jax():
@@ -153,6 +225,7 @@ for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__, "jepsen_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 from jepsen_tpu_torch.checkers.elle import device_core, device_infer
+from jepsen_tpu_torch.history.soa import pack_txns
 from jepsen_tpu_torch.workloads.synth import packed_la_history
 p = chip_smoke.stale_reads(packed_la_history(300, n_keys=20, seed=1))
 h = device_infer.pad_packed(p, device="cpu")
@@ -218,6 +291,21 @@ r = fifo.check(q, fifo=True, device="cpu")
 assert r["anomaly-types"] == ["queue-fifo-violation"], r
 assert fifo.check(q, fifo=True, use_device=False) == r
 assert set(MODELS) == {"kafka", "total-queue"}
+import tempfile
+from jepsen_tpu_torch import store
+from jepsen_tpu_torch.checkers.elle import stream
+from jepsen_tpu_torch.parallel import batch
+from jepsen_tpu_torch.workloads.synth import la_history, inject_wr_cycle
+sh = la_history(n_txns=120, n_keys=5, concurrency=6, seed=3)
+assert inject_wr_cycle(sh)
+with tempfile.TemporaryDirectory() as d:
+    t = {"name": "purity", "store-dir": d, "history": sh}
+    store.save_0(t)
+    r = stream.check_stored(store.test_dir(t), device="cpu")
+assert r["valid?"] is False and r["cycles"]["G1c"], r
+ps = [packed_la_history(48, n_keys=4, seed=s) for s in range(3)]
+rs = batch.check_batch(ps + [pack_txns(sh)], device="cpu")
+assert [x["valid?"] for x in rs] == [True, True, True, False], rs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
