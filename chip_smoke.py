@@ -32,12 +32,12 @@ Phases, each asserting; any failure exits non-zero:
         forward-fill and no segmented-OR launches per call, and its time
         beside phase 3's `core_check`;
      b. the stale-read corpus of phase 4 under strong snapshot isolation
-        at 65,536 txns: a G-single-family anomaly with explained cycles,
+        at 32,768 txns: a G-single-family anomaly with explained cycles,
         segmented-OR launches, and the check's time split into pad, infer,
         sweeps and host classification (witness BFS, cycle search,
         rendering);
      c. card == CPU: the whole result dict of 6b's check against the same
-        check on the CPU;
+        check on the CPU, on the same corpus at 16,384 txns;
      d. two op histories built with the port's `history` module (a G1c
         pair; G1a, G1b and internal) with their anomaly types, card ==
         CPU;
@@ -110,9 +110,9 @@ Phases, each asserting; any failure exits non-zero:
      c. write skew, `ws_history(pairs=512, n_txns=100,000)`: valid and
         `inject_write_skew`;
      d. session, `sess_history(n_keys=64, n_txns=100,000)` with pinned
-        keys and without: valid and `inject_session_break`, two LOCF
-        launches per check; `predicate.check` on the same `HistoryIR`,
-        `infer_rw` run once for both;
+        keys and at 50,000 txns without: valid and `inject_session_break`,
+        two LOCF launches per check; `predicate.check` on the same
+        `HistoryIR`, `infer_rw` run once for both;
      e. the seven closed-predicate histories of
         `tests/test_closed_predicate.py`;
      f. card == CPU: the whole result dict of a-e, at full size where the
@@ -131,7 +131,7 @@ Phases, each asserting; any failure exits non-zero:
      b. 50,000 ops with each of the six adversarial knobs at 0.002, and
         with frozen commits (seeds in order until `stale-consumer-group`
         shows); at 25,000 ops the card == the scan twin `KafkaChecker`;
-     c. the total queue, `sim_mem_queue(0, ops=500,000)` drained: valid
+     c. the total queue, `sim_mem_queue(0, ops=250,000)` drained: valid
         with `fifo=False` and `fifo=True`; `lose_enqueue_p` gives
         `queue-lost`, `dup_enqueue_p` `queue-phantom`, and
         `reorder_dequeue_p` `queue-fifo-violation` with `fifo=True` only;
@@ -153,42 +153,64 @@ Phases, each asserting; any failure exits non-zero:
         sweep asks for more than the card holds): G-single cycles in
         projections 2-4, converged; the budget of each sweep, seg-OR
         launches, time and peak device memory.
- 12. BASELINE config 5 on one card: 16 of its 100 histories, each
+ 12. BASELINE config 5 on one card: 8 of its 100 histories, each
      `packed_la_history(1M, n_keys=125,000, mops_per_txn=4,
      read_frac=0.25, seed=i)` (`scripts/config5_batch.py`'s generator and
      key rule), every 4th with a failed writer (`seed_invalid`, a copy of
      that script's) and history 2 with 64 stale reads:
-     a. `parallel.batch.check_batch_checkpointed` in groups of 8, whose
+     a. `parallel.batch.check_batch_checkpointed` in groups of 4, whose
         `on_group` raises after the first durable group (the simulated
         crash); the call again resumes and computes group 1 only; the
         failed writers and the stale reads invalid, the rest valid, all
         exact, and every row's dict equal to the same history alone
         through `pad_packed` and `core_check_exact`;
      b. each group's wall time split into the pad (host, with the copy
-        of the stack to the card) and the card, txns/s over the 16M txns,
+        of the stack to the card) and the card, txns/s over the 8M txns,
         peak device memory and the launches of both kernels;
-     c. card == CPU: `check_batch` of 4 histories of 65,536 txns (two
+     c. card == CPU: `check_batch` of 4 histories of 32,768 txns (two
         valid, a failed writer, stale reads);
  13. a stored run streamed to the card through `store` and
      `checkers.elle.stream`:
-     a. `synth.la_history(n_txns=100,000, n_keys=12,500, concurrency=10)`
-        (200,000 ops) saved with `store.save_0` into a temporary store and
+     a. `synth.la_history(n_txns=50,000, n_keys=6,250, concurrency=10)`
+        (100,000 ops) saved with `store.save_0` into a temporary store and
         checked by `stream.check_stored`: valid, equal to `core_check_exact`
         on `pad_packed(pack_txns(h))`; the save, the staging (decode,
         pack and copies) against the decode and pack alone, the check,
         the chunks, peak device memory and launches;
      b. the same history with `inject_wr_cycle`: invalid, G1c;
-     c. `rw_history(n_txns=50,000)` through
+     c. `rw_history(n_txns=25,000)` through
         `check_stored(workload="rw-register")`, equal to `device_rw.check`;
      d. card == CPU at 16,384 txns: every staged array and the dicts of
-        both routes.
+        both routes;
+ 14. a Jepsen test run on the card, through `python -m jepsen_tpu_torch`'s
+     suite (`cli.run(cli.test_all_cmd(DEMOS, ...), argv)`, in process) on
+     the in-process sim cluster, with a store under `build/`:
+     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 100000
+        --time-limit 120` (50 workers, 200,000 ops): exit 0, valid, no
+        error, LOCF launches; the workload's time and rate, `save_0`, the
+        check and its part on the card (infer and sweeps), the history's
+        size, launches and peak device memory;
+     b. `analyze DIR` on 14a's run: the same dict, and the same stored
+        history through `AppendChecker(device="cpu")` gives it too;
+     c. 14a's history, as 14b decoded it, with one G1c injected by
+        `synth.inject_wr_cycle` (among its first txns), saved with
+        `store.save_0`, then `analyze`: invalid, G1c, seg-OR launches,
+        SVGs under the run's `elle/`; card == CPU, the dicts and the SVG
+        bytes;
+     d. `test-all --only wr ... --ops 50000`: valid or unknown (as
+        `tests/test_workloads.py` allows), card == CPU on its history;
+     e. one child process, `python -X importtime -m jepsen_tpu_torch
+        test-all --only append --ops 2000` with no `--cpu`: exit 0,
+        `results.json` valid, and neither `jax` nor `jepsen_tpu` among
+        its imports.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
-call of phase 12 and each `check_stored` of 13a-13c, and read just after
-each (phase 12: after the resumed call); the kernels' `launches` are
-their sum (phases 8 and 10 assert that they launch neither).  The command's total time,
+call of phase 12, each `check_stored` of 13a-13c and each `cli.run` of
+14a-14d, and read just after each (phase 12: after the resumed call);
+the kernels' `launches` are their sum (phases 8 and 10 assert that they
+launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.
@@ -217,6 +239,10 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
+N_API_STALE = 32_768         # 6b: at 65,536 the check took 77-107 s on
+                             # an H100 host, nearly all of it `find_cycle`
+N_API_CMP = 16_384           # 6c: card == CPU (the CPU check of 6b's
+                             # corpus took 83 s at 65,536 txns)
 G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
 #: the stale-read checks' model: it proscribes the G-single family and not
 #: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
@@ -252,6 +278,8 @@ N_BANK_READS = 1_000_000     # 9a: the reduction at scale, a PackedBank
 LF_KW = dict(groups=256, group_size=4, n_reads=50_000, seed=0)     # 9b
 WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
 SESS_KW = dict(n_keys=64, n_txns=100_000, seed=0)                  # 9d
+SESS_UNPINNED_TXNS = 50_000  # 9d without pinned keys: 8-9 s a check on
+                             # the host at 100,000
 N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
 INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
 #: 10: the kafka corpus's generator knobs (tests/test_queue_checkers.py)
@@ -269,7 +297,7 @@ KAFKA_INJECT_OPS = 50_000
 KAFKA_INJECTED = ("duplicate", "inconsistent-offsets", "int-send-skip",
                   "lost-write", "nonmonotonic-send")
 KAFKA_TWIN_OPS = 25_000      # 10b: the scan twin grows too fast for more
-QUEUE_OPS = 500_000          # 10c
+QUEUE_OPS = 250_000          # 10c
 QUEUE_INJECT_P = 0.001
 INT64_OPS = 86_000           # 10d: the smallest sim_kafka(0, ops=n), n a
                              # multiple of 1,000, whose epoch codes pass 2^30
@@ -284,19 +312,27 @@ SHAPES_10M = (1 << 24, 1 << 26, 1 << 28)
 #: a (3 * 2^26, 128) int8 plane, 24 GiB); 32 is scripts/tpu_10m.py's, and
 #: `core_check_exact` grows it while the sweep overflows
 MAX_K_10M = 32
-N_C5 = 16                    # 12: of BASELINE config 5's 100 histories
-C5_GROUP = 8                 # check_batch_checkpointed's group size
+N_C5 = 8                     # 12: of BASELINE config 5's 100 histories
+C5_GROUP = 4                 # check_batch_checkpointed's group size
 C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
 C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
 C5_STALE_AT = 2              # ... and this one N_STALE stale reads
-N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
-#: 13a: 100,000 txns, half the size first planned: at 200,000 the whole
-#: script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3 host,
-#: phase 13 187.5 s of it, most of that the Python decode and pack of the
-#: stored ops (PERF.md)
-STREAM_KW = dict(n_txns=100_000, n_keys=12_500, concurrency=10, seed=0)
-STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
+N_C5_CMP = 32_768            # 12c: card == CPU on 4 histories this size
+#: 13a: 50,000 txns, a quarter of the size first planned: at 200,000 the
+#: whole script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3
+#: host, phase 13 187.5 s of it, most of that the Python decode and pack
+#: of the stored ops, and phase 14 stores and decodes a 100,000-txn run
+#: of its own (PERF.md)
+STREAM_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
+STREAM_RW_KW = dict(n_txns=25_000, n_keys=3_125, concurrency=10, seed=0)
 N_STREAM_CMP = 16_384        # 13d: card == CPU
+#: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
+#: flags of the JAX package's demo (`-n n1 ... -n n5 -c 10n`: 50 workers)
+RUN_NODES = ("n1", "n2", "n3", "n4", "n5")
+RUN_OPS = 100_000            # 14a: append txns (200,000 history ops)
+RUN_WR_OPS = 50_000          # 14d
+RUN_TIME_LIMIT = 120
+RUN_CHILD_OPS = 2_000        # 14e
 
 T_START = time.perf_counter()
 
@@ -803,6 +839,9 @@ def main(argv=None) -> int:
     # ---- 13. stored runs streamed to the card -----------------------------
     check_stream(dev, launches)
 
+    # ---- 14. a Jepsen test run on the card --------------------------------
+    check_run(dev, launches)
+
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
              source="jepsen_tpu_torch/csrc/locf.cu",
@@ -862,27 +901,34 @@ def check_api(p, best: float, launches: dict) -> None:
         f"{N_TXNS / best6:.1f} ops/s; core_check (phase 3) best {best:.4f} "
         f"s, so the checker adds {best6 - best:.4f} s")
 
-    ps6 = stale_reads(packed_la_history(N_SMALL, n_keys=N_SMALL // 8, seed=0))
+    ps6 = stale_reads(packed_la_history(N_API_STALE,
+                                        n_keys=N_API_STALE // 8, seed=0))
     r, t, n = counted_check(ps6, STALE_MODELS)
     assert r["valid?"] is False, r["anomaly-types"]
     family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
     assert family, r["anomaly-types"]
     n_cycles = explained_cycles(r)
     assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
-    log(f"[6b] stale reads, {N_SMALL} txns, {'+'.join(STALE_MODELS)}: "
+    log(f"[6b] stale reads, {N_API_STALE} txns, {'+'.join(STALE_MODELS)}: "
         f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
         f"projections; {family}; {n_cycles} cycles, every edge "
         f"explained; launches {n}")
 
-    # 6c: 6b's check (on the card) against the same check on the CPU
+    del ps6
+    # 6c: 6b's check on the card against the same check on the CPU, at
+    # N_API_CMP txns
+    psc = stale_reads(packed_la_history(N_API_CMP, n_keys=N_API_CMP // 8,
+                                        seed=0))
+    r = list_append.check(psc, STALE_MODELS, _force_no_fallback=True)
     want, t_cpu = wall_s(lambda: list_append.check(
-        ps6, STALE_MODELS, _force_no_fallback=True, device="cpu"))
+        psc, STALE_MODELS, _force_no_fallback=True, device="cpu"))
     assert r == want, (r, want)
-    log(f"[6c] {N_SMALL} txns with stale reads: the result dicts are "
+    assert r["valid?"] is False, r
+    log(f"[6c] {N_API_CMP} txns with stale reads: the result dicts are "
         f"equal on card and CPU ({r['anomaly-types']}, "
         f"{explained_cycles(r)} rendered cycles, not {r['not']}, "
         f"also-not {r['also-not']}); the CPU check took {t_cpu:.4f} s")
-    del ps6
+    del psc
 
     for hname, h, expect in op_histories():
         got = list_append.check(h, ["strict-serializable"],
@@ -1416,9 +1462,10 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
     for pin in (True, False):
         what = f"session, {'pinned keys, ' if pin else ''}"
         t0 = time.perf_counter()
-        h = sess_history(**SESS_KW, pin_keys=pin)
+        kw = SESS_KW if pin else dict(SESS_KW, n_txns=SESS_UNPINNED_TXNS)
+        h = sess_history(**kw, pin_keys=pin)
         ir = HistoryIR(h)
-        log(f"[9d] sess_history({SESS_KW}, pin_keys={pin}): {len(h.ops)} "
+        log(f"[9d] sess_history({kw}, pin_keys={pin}): {len(h.ops)} "
             f"ops in {time.perf_counter() - t0:.2f} s")
         with Split((("infer_rw", packed, "infer_rw"),)) as builds:
             r, n = cell("d", what + "valid", session.check, ir, rw_sections)
@@ -2028,6 +2075,186 @@ def check_stream(dev: torch.device, launches: dict) -> None:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+
+
+def check_run(dev: torch.device, launches: dict) -> None:
+    """Phase 14: a Jepsen test run on the card (see the module docstring),
+    driven in process through `python -m jepsen_tpu_torch`'s suite
+    (`cli.run(cli.test_all_cmd(DEMOS, ...), argv)`).  The counters are
+    set to 0 just before each `cli.run` of 14a-14d and read just after;
+    the sums go into the main path's `launches`."""
+    import shutil
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch.__main__ import DEMOS, demo_checker
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.checkers.elle import list_append
+    from jepsen_tpu_torch.generator import interpreter
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.store.format import LazyHistory
+    from jepsen_tpu_torch.workloads import append, synth, wr
+
+    t14 = time.perf_counter()
+    base = os.path.join(HERE, "build", "chip_smoke_runs")
+    shutil.rmtree(base, ignore_errors=True)
+    suite = cli.test_all_cmd(DEMOS, checker_fn=demo_checker,
+                             prog="python -m jepsen_tpu_torch")
+    nodes = [a for n in RUN_NODES for a in ("-n", n)]
+    la = list_append
+    # a run's stages: the workload (the interpreter), the two saves, the
+    # stored history's decode (analyze), and the check split as in 6b;
+    # the card's share of the check is infer + sweeps
+    stages = (("workload", interpreter, "run"), ("save_0", store, "save_0"),
+              ("decode", LazyHistory, "materialize"),
+              ("check", checker_api, "check_safe"),
+              ("save_1", store, "save_1"),
+              ("pad", la, "pad_packed"), ("infer", la, "infer"),
+              ("sweeps", la, "detect_cycles"),
+              ("bfs", la, "_materialize_host_edges"),
+              ("bfs", la, "_witness_regions"),
+              ("find_cycle", la, "find_cycle"), ("render", la, "_render"))
+
+    def counted(argv):
+        """`cli.run(suite, argv)` with the counters set to 0 just before
+        it and read just after; returns (exit code, Split, launches,
+        peak device memory, the history the run made or decoded)."""
+        split = Split(stages)
+        keep = Split((("history", interpreter, "run"),
+                      ("history", LazyHistory, "materialize")), keep=True)
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with split, keep:
+            rc = cli.run(suite, ["--store-dir", base, *argv])
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return (rc, split, n, torch.cuda.max_memory_allocated(),
+                keep.kept["history"][-1][1])
+
+    def on_card(split):
+        return split.s["infer"] + split.s["sweeps"]
+
+    def host_s(split):
+        return sum(split.s[k] for k in Split.HOST)
+
+    def results(d):
+        return store.load(d)["results"]
+
+    try:
+        # ---- 14a. test-all --only append, 50 workers -----------------------
+        rc, sp, n, peak, h = counted([
+            "test-all", "--only", "append", *nodes, "-c", "10n",
+            "--ops", str(RUN_OPS), "--time-limit", str(RUN_TIME_LIMIT)])
+        d = store.latest("demo-append", base=base)
+        r14a = results(d)
+        n_txns = sum(op.type == "invoke" for op in h)
+        assert rc == 0 and r14a["valid?"] is True, (rc, r14a)
+        assert "error" not in r14a, r14a
+        assert n["locf"] > 0, n
+        log(f"[14a] test-all --only append, {len(RUN_NODES)} nodes, "
+            f"10n = 50 workers, --ops {RUN_OPS}: {len(h)} ops ({n_txns} "
+            f"txns, {sum(op.type == 'info' for op in h)} info) in "
+            f"{sp.s['workload']:.2f} s ({n_txns / sp.s['workload']:.1f} "
+            f"txns/s); save_0 {sp.s['save_0']:.2f} s; check "
+            f"{sp.s['check']:.4f} s, on the card {on_card(sp):.4f} s "
+            f"(pad {sp.s['pad']:.4f}, infer {sp.s['infer']:.4f}, sweeps "
+            f"{sp.s['sweeps']:.4f} s); save_1 {sp.s['save_1']:.2f} s; "
+            f"valid? {r14a['valid?']}; launches {n}; max_memory_allocated "
+            f"{peak} B")
+        # ---- 14b. analyze DIR, and the CPU ---------------------------------
+        rc, sp, n, peak, stored = counted(["analyze", d])
+        assert rc == 0, rc
+        assert results(d) == r14a
+        r_cpu, t_cpu = wall_s(lambda: append.AppendChecker(
+            device="cpu").check(store.load(d), stored))
+        assert r_cpu == r14a, (r_cpu, r14a)
+        log(f"[14b] analyze {os.path.basename(d)}: decode "
+            f"{sp.s['decode']:.2f} s, check {sp.s['check']:.4f} s (on the "
+            f"card {on_card(sp):.4f} s), the dict equal to 14a's; launches "
+            f"{n}; AppendChecker(device='cpu') on the stored history "
+            f"{t_cpu:.4f} s, equal")
+        # ---- 14c. one G1c in the stored history, saved, analyze ----------
+        # 14b is done with the decoded history: inject into it in place
+        t0 = time.perf_counter()
+        assert synth.inject_wr_cycle(stored)
+        t_inject = time.perf_counter() - t0
+        tc = {"name": "demo-append", "store-dir": base,
+              "start-time": time.time(), "history": stored}
+        (_, t_save) = wall_s(lambda: store.save_0(tc))
+        dc = store.test_dir(tc)
+        rc, sp, n, peak, _ = counted(["analyze", dc])
+        r14c = results(dc)
+        assert rc == 1 and r14c["valid?"] is False, (rc, r14c)
+        assert "G1c" in r14c["anomaly-types"], r14c
+        assert n["seg_or"] > 0, n
+        svgs = r14c.get("viz-files") or []
+        assert svgs and all(os.path.dirname(f) == os.path.join(dc, "elle")
+                            and os.path.getsize(f) > 0 for f in svgs), svgs
+        # card == CPU: the CPU check writes its SVGs into a run of its own
+        tcpu = {"name": "demo-append-cpu", "store-dir": base,
+                "start-time": tc["start-time"]}
+        r_cpu, t_cpu = wall_s(lambda: append.AppendChecker(
+            device="cpu").check(tcpu, stored))
+        svgs_cpu = r_cpu.pop("viz-files", [])
+        assert r_cpu == {k: v for k, v in r14c.items() if k != "viz-files"}
+        assert [(os.path.basename(f), open(f, "rb").read())
+                for f in svgs_cpu] == \
+            [(os.path.basename(f), open(f, "rb").read()) for f in svgs]
+        log(f"[14c] inject_wr_cycle ({t_inject:.2f} s), save_0 "
+            f"{t_save:.2f} s; analyze: valid? False, "
+            f"{r14c['anomaly-types']}, {len(svgs)} SVGs under elle/; decode "
+            f"{sp.s['decode']:.2f} s, check {sp.s['check']:.4f} s (on the "
+            f"card {on_card(sp):.4f} s: pad {sp.s['pad']:.4f}, infer "
+            f"{sp.s['infer']:.4f}, sweeps {sp.s['sweeps']:.4f} s; host "
+            f"classification {host_s(sp):.4f} s); launches {n}; "
+            f"max_memory_allocated {peak} B; AppendChecker(device='cpu') "
+            f"{t_cpu:.4f} s: the same dict and SVG bytes")
+        del stored, h
+        # ---- 14d. test-all --only wr -----------------------------------
+        rc, sp, n, peak, hw = counted([
+            "test-all", "--only", "wr", *nodes, "-c", "10n",
+            "--ops", str(RUN_WR_OPS), "--time-limit", str(RUN_TIME_LIMIT)])
+        dw = store.latest("demo-wr", base=base)
+        rw = results(dw)
+        assert rw["valid?"] in (True, "unknown"), rw
+        assert rc == (0 if rw["valid?"] is True else 1), (rc, rw)
+        r_cpu, t_cpu = wall_s(lambda: wr.WrChecker(device="cpu").check(
+            store.load(dw), hw))
+        assert r_cpu == rw, (r_cpu, rw)
+        log(f"[14d] test-all --only wr, 50 workers, --ops {RUN_WR_OPS}: "
+            f"{len(hw)} ops in {sp.s['workload']:.2f} s; save_0 "
+            f"{sp.s['save_0']:.2f} s; check {sp.s['check']:.4f} s; valid? "
+            f"{rw['valid?']}; launches {n}; max_memory_allocated {peak} B; "
+            f"WrChecker(device='cpu') {t_cpu:.4f} s, equal")
+        del hw
+        # ---- 14e. python -m jepsen_tpu_torch, no --cpu -----------------
+        child = os.path.join(base, "child")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "jepsen_tpu_torch",
+             "--store-dir", child, "test-all", "--only", "append", "--ops",
+             str(RUN_CHILD_OPS)], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        t_child = time.perf_counter() - t0
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+        imported = {line.rsplit("|", 1)[-1].strip()
+                    for line in res.stderr.splitlines()
+                    if line.startswith("import time:")}
+        bad = sorted(m for m in imported
+                     if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+        assert "jepsen_tpu_torch.core" in imported and not bad, bad
+        dchild = store.latest("demo-append", base=child)
+        with open(os.path.join(dchild, "results.json")) as f:
+            rchild = json.load(f)
+        assert rchild["valid?"] is True, rchild
+        log(f"[14e] python -m jepsen_tpu_torch test-all --only append --ops "
+            f"{RUN_CHILD_OPS} (no --cpu): exit 0 in {t_child:.2f} s, "
+            f"results.json valid? true, {len(imported)} modules imported, "
+            f"none of jax or jepsen_tpu")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
 def compaction(device_wgl, search) -> None:

@@ -17,6 +17,15 @@ scalar read per round, the skips for zero backward edges are Python
 branches, and the scan over projections is a Python loop.  A result with
 `converged=False` must not be trusted (`list_append.check` raises on it;
 the JAX package falls back to its host oracle).
+
+One change from the JAX module: `detect_cycles` reads its fixpoint on
+rank windows (`_rank_window`), so its rounds are bounded by the backward
+edges' rank drops, not by how far the history runs past them.  Its
+results are the JAX module's wherever that one converges; a history
+that is long after an early backward edge, which the JAX module cannot
+sweep within `MAX_ROUNDS_CAP`, converges here.  `projection_scan`, whose
+convergence bit is one of `core_check`'s verdict bits, keeps the JAX
+fixpoint.
 """
 
 from __future__ import annotations
@@ -97,17 +106,57 @@ def _seed_labels(n_nodes: int, k: int, bdst, bvalid) -> torch.Tensor:
     return labels[:n_nodes]
 
 
+def _rank_window(n_nodes: int, rank, bsrc, bdst, bvalid) -> torch.Tensor:
+    """(n_nodes, k) bool: the nodes in backward edge e's window, those
+    with rank at most the least of two bounds on any cycle through e.
+
+    Forward edges raise rank and only backward edges lower it, so a
+    cycle's backward edges cover its whole rank range with their
+    [rank(dst), rank(src)] intervals (every step up the ranks is stepped
+    down again), and its forward stretches span at most the sum of its
+    backward edges' drops.  So a cycle through e ends, in rank, at the
+    right end of the component of overlapping intervals that holds e's,
+    and within rank(dst(e)) + S, S summing every backward edge's drop.
+    Reachability past the window closes no cycle through e: a fixpoint
+    read on the windows alone gives the same witnesses as the full one,
+    in rounds bounded by the windows' lengths, however far the graph
+    runs past its backward edges."""
+    r = rank[:n_nodes].to(torch.int64)
+    rs = rank[bsrc.long()].to(torch.int64)
+    rd = rank[bdst.long()].to(torch.int64)
+    drops = torch.where(bvalid, rs - rd, 0).sum()
+    # components of the intervals, in order of rd: one starts where rd
+    # passes every earlier interval's right end
+    big = torch.iinfo(torch.int64).max
+    order = torch.argsort(torch.where(bvalid, rd, big), stable=True)
+    rd_o = rd[order]
+    rs_o = torch.where(bvalid[order], rs[order], -1)
+    reach = torch.cummax(rs_o, 0).values
+    starts = torch.ones_like(bvalid)
+    starts[1:] = rd_o[1:] > reach[:-1]
+    comp = torch.cumsum(starts.to(torch.int64), 0) - 1
+    right = torch.full_like(rs_o, -1).scatter_reduce_(
+        0, comp, rs_o, "amax", include_self=True)
+    right_of = torch.empty_like(right)
+    right_of[order] = right[comp]
+    limit = torch.where(bvalid, torch.minimum(rd + drops, right_of), -1)
+    return r[:, None] <= limit[None, :]
+
+
 def _sweep_window(n_nodes: int, k: int, max_rounds: int,
                   rank, nc_src, nc_dst, nc_mask,
                   chain_nodes, chain_starts, chain_mask,
-                  back_raw=None, back_pre=None, back_tables=None
+                  back_raw=None, back_pre=None, back_tables=None,
+                  windowed: bool = False
                   ) -> Tuple[bool, torch.Tensor, int, bool]:
     """Sweep over the first `k` backward edges.  Returns (has_cycle,
     witness_bits (k,) int8, n_backward, converged).
 
     `back_pre` = (is_back, back_id, n_back) and `back_tables` = (bsrc,
     bdst) let `projection_scan` hand in the enumeration it hoisted;
-    without them the edges are enumerated here in position order."""
+    without them the edges are enumerated here in position order.  With
+    `windowed`, the fixpoint has converged once nothing changes inside
+    the rank windows (`_rank_window`)."""
     if back_pre is not None:
         is_back, back_id, n_back = back_pre
     else:
@@ -142,10 +191,15 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
         return scatter_or(labels, nc_dst, vals, fwd_mask)
 
     labels = chain_pass(_seed_labels(n_nodes, k, bdst, bvalid))
+    window = (_rank_window(n_nodes, rank, bsrc, bdst, bvalid)
+              if windowed else None)
     changed, rounds = True, 0
     while changed and rounds < max_rounds:
         new = chain_pass(relax_pass(chain_pass(labels)))
-        changed = bool(torch.any(new != labels))
+        diff = new != labels
+        if window is not None:
+            diff &= window
+        changed = bool(torch.any(diff))
         labels = new
         rounds += 1
     converged = not (changed and rounds >= max_rounds)
@@ -170,14 +224,14 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
 def _sweep_arrays(n_nodes: int, max_k: int, max_rounds: int,
                   rank, nc_src, nc_dst, nc_mask,
                   chain_nodes, chain_starts, chain_mask, back_raw=None,
-                  back_pre=None, back_tables=None):
+                  back_pre=None, back_tables=None, windowed: bool = False):
     """Single-window sweep.  Returns (has_cycle, witness_bits (max_k,)
     int8, n_backward, converged); n_backward may exceed max_k (the first
     max_k are exact and the caller must grow the budget)."""
     return _sweep_window(n_nodes, max_k, max_rounds, rank, nc_src, nc_dst,
                          nc_mask, chain_nodes, chain_starts, chain_mask,
                          back_raw=back_raw, back_pre=back_pre,
-                         back_tables=back_tables)
+                         back_tables=back_tables, windowed=windowed)
 
 
 def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
@@ -297,7 +351,7 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
         if deadline is not None:
             deadline.check("cycle-sweep")
         has, wit, n_back, conv = _sweep_arrays(g.n_nodes, max_k, max_rounds,
-                                               *arrays)
+                                               *arrays, windowed=True)
         if n_back > max_k:
             if n_back > MAX_K_CAP or max_k >= MAX_K_CAP:
                 # bit budget unreachable or exhausted: report inexact

@@ -7,8 +7,9 @@ attributable verdict.
   transient classifier) and the cooperative :class:`Deadline`, whose
   expiry becomes ``{"valid?": "unknown", "error": "deadline-exceeded"}``;
 - :mod:`~.faults` — the deterministic seeded :class:`FaultPlan`, the
-  resilience layer's own test harness (given as ``plan=`` or installed
-  with :class:`use`);
+  resilience layer's own test harness (given as ``plan=``, installed
+  with :class:`use`, or resolved for a run by :func:`plan_for` from the
+  test map or ``JEPSEN_FAULTS``);
 - :mod:`~.guard` — :func:`device_call`, the seam wrapper that retries
   transients, :func:`degrade_to_host`, the tail that runs the host
   oracle with a ``"degraded": "host-fallback"`` stamp, and
@@ -22,6 +23,9 @@ from jepsen_tpu_torch.resilience.faults import (
     active_plan,
     clear,
     install,
+    parse_spec,
+    plan_for,
+    seeded_for,
     use,
 )
 from jepsen_tpu_torch.resilience.guard import (
@@ -44,6 +48,7 @@ __all__ = [
     "Deadline", "DeadlineExceeded", "RetryPolicy", "is_transient",
     "DEADLINE_ERROR", "DEFAULT_POLICY", "deadline_result",
     "FaultPlan", "FaultInjected", "use", "install", "clear", "active_plan",
+    "parse_spec", "seeded_for", "plan_for",
     "device_call", "degrade_to_host", "with_fallback",
     "DEGRADED_HOST",
 ]

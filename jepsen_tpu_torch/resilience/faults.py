@@ -10,10 +10,14 @@ the same faults, so a chaos run that found a bug replays exactly.
 It is the test harness of the resilience layer: inject a persistent
 device fault, assert the checker degrades to the host oracle and still
 produces the fault-free verdict.  A plan is given to a checker as
-``plan=`` or installed for a block with :class:`use`; nothing installs
-one behind the caller's back.
+``plan=`` or installed for a block with :class:`use`.  A run
+(`core.run`) resolves its plan with :func:`plan_for`: the test map's
+``"faults"`` spec, else an installed plan, else the ``JEPSEN_FAULTS``
+variable (``"seed=7,p=0.05,kinds=oom|xla"``).  Only :func:`plan_for`
+reads the variable: a checker called directly injects only a plan that
+its caller gave or installed.
 
-FaultPlan arguments:
+Spec keys (dict or ``k=v,k=v`` string), the FaultPlan arguments:
 
     seed         int, default 0 — drives the probabilistic decisions
     p            float, default 0 — per-call fault probability
@@ -25,21 +29,19 @@ FaultPlan arguments:
     max_faults   int — stop injecting after this many faults
     stall_s      float, default 0.05 — stall duration
     sites        iterable — restrict injection to these site names
-
-The JAX package's process-wide ``JEPSEN_FAULTS`` variable, its per-test
-``"faults"`` spec and the caller-indexed `fire_at` stream serve its CLI,
-checker API and client interpreter, which the port does not have yet.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
-__all__ = ["FaultInjected", "FaultPlan", "use", "install", "clear",
-           "active_plan", "KIND_MESSAGES"]
+__all__ = ["FaultInjected", "FaultPlan", "parse_spec", "seeded_for",
+           "plan_for", "use", "install", "clear", "active_plan",
+           "KIND_MESSAGES"]
 
 #: the JAX package's synthetic messages, word for word, so that a result
 #: stamped with a synthetic fault reads the same from both packages (the
@@ -81,6 +83,39 @@ def _split(v: Union[str, Iterable[str], None]) -> Optional[List[str]]:
     return list(v)
 
 
+def parse_spec(spec: Union[str, dict, None]) -> Optional[dict]:
+    """Normalize a fault spec: env-string form to a dict; dicts pass
+    through (copied).  Returns None for empty/falsy specs."""
+    if not spec:
+        return None
+    if isinstance(spec, dict):
+        return dict(spec)
+    out: Dict[str, Any] = {}
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"bad JEPSEN_FAULTS entry {part!r} "
+                             "(want key=value[,key=value...])")
+        k, v = part.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out or None
+
+
+def seeded_for(spec: Union[str, dict, None], salt: int
+               ) -> Optional[dict]:
+    """Derive a spec whose seed mixes in `salt`: one template yields a
+    distinct-but-replayable FaultPlan per salt.  The mix is a plain XOR
+    of the normalized template seed, so ``seeded_for(s, 0)`` keeps the
+    template's own stream."""
+    d = parse_spec(spec)
+    if d is None:
+        return None
+    d["seed"] = int(d.get("seed", 0)) ^ int(salt)
+    return d
+
+
 class FaultPlan:
     """Deterministic schedule of synthetic device faults.
 
@@ -119,10 +154,22 @@ class FaultPlan:
         #: and chaos reports read this
         self.injected: List[Tuple[int, str, str]] = []
 
-    def _decide(self, index: int, site: str) -> Optional[str]:
+    @classmethod
+    def from_spec(cls, spec: Union[str, dict, None]
+                  ) -> Optional["FaultPlan"]:
+        d = parse_spec(spec)
+        if d is None:
+            return None
+        return cls(**d)
+
+    def _decide(self, index: int, site: str,
+                salt: int = 0) -> Optional[str]:
         """The pure decision function: which fault (if any) fires at
         this (index, site)?  Hash-seeded per call index so decisions
-        are order-independent across sites with the same counter."""
+        are order-independent across sites with the same counter.
+        `salt` separates index spaces: caller-indexed streams
+        (:meth:`fire_at`) draw from another sequence than the global
+        counter."""
         if self.sites is not None and site not in self.sites:
             return None
         if self.persistent is True or \
@@ -131,7 +178,7 @@ class FaultPlan:
         if index in self.at:
             return self.at[index]
         if self.p > 0.0 and self.kinds:
-            rng = random.Random((self.seed << 20) ^ index)
+            rng = random.Random((self.seed << 20) ^ index ^ salt)
             if rng.random() < self.p:
                 return self.kinds[rng.randrange(len(self.kinds))]
         return None
@@ -139,15 +186,35 @@ class FaultPlan:
     def fire(self, site: str) -> None:
         """Called by the guard before each device entry point: count the
         call and inject the planned fault (raise, or sleep for stalls).
-        The max_faults gate and the log append stay atomic under the
-        plan lock; the raise or stall happens outside it."""
+        """
         with self._lock:
             index = self._n_calls
             self._n_calls += 1
+        self._fire_decided(site, index, salt=0)
+
+    #: rng-stream salt for caller-indexed decisions (fire_at): keeps
+    #: the interpreter's per-worker streams independent of the global
+    #: device-call counter's stream for the same seed
+    _CALLER_SPACE_SALT = 0x5EED5A17
+
+    def fire_at(self, site: str, index: int) -> None:
+        """Like :meth:`fire`, but the decision index is supplied by the
+        caller instead of the plan's global counter: each interpreter
+        worker derives its own index stream from (thread id, local op
+        count), so injections are seeded-deterministic regardless of
+        thread interleaving.  ``max_faults`` and the injection log stay
+        plan-wide."""
+        self._fire_decided(site, index, salt=self._CALLER_SPACE_SALT)
+
+    def _fire_decided(self, site: str, index: int, salt: int) -> None:
+        """Shared tail of fire/fire_at: the max_faults gate and the
+        log append stay atomic under the plan lock; the raise or stall
+        happens outside it."""
+        with self._lock:
             if self.max_faults is not None and \
                     len(self.injected) >= self.max_faults:
                 return
-            kind = self._decide(index, site)
+            kind = self._decide(index, site, salt=salt)
             if kind is None:
                 return
             self.injected.append((index, site, kind))
@@ -157,6 +224,16 @@ class FaultPlan:
         raise FaultInjected(kind, site, index,
                             transient=_TRANSIENT_KINDS.get(kind, True))
 
+    def targets_site(self, site: str) -> bool:
+        """Does this plan EXPLICITLY name `site`?  Sites outside the
+        device-call guard (the interpreter's client-side seam) are
+        strictly opt-in: a bare ``p=0.2`` checker plan must not start
+        crashing client ops."""
+        if self.sites is not None and site in self.sites:
+            return True
+        return isinstance(self.persistent, frozenset) and \
+            site in self.persistent
+
     def __repr__(self) -> str:
         return (f"<FaultPlan seed={self.seed} p={self.p} "
                 f"kinds={self.kinds} at={self.at} "
@@ -165,7 +242,8 @@ class FaultPlan:
 
 
 # ---------------------------------------------------------------------------
-# Activation: an explicitly installed plan, else none.
+# Activation: an explicitly installed plan, else none.  A run's
+# plan_for adds the test map's spec and the JEPSEN_FAULTS variable.
 # ---------------------------------------------------------------------------
 
 _active: Optional[FaultPlan] = None
@@ -205,3 +283,43 @@ class use:
 def active_plan() -> Optional[FaultPlan]:
     """The plan installed by :func:`install` or :class:`use`, else None."""
     return _active
+
+
+_env_plan: Optional[FaultPlan] = None
+_env_spec_seen: Optional[str] = None
+
+
+def _from_env() -> Optional[FaultPlan]:
+    """The ``JEPSEN_FAULTS`` plan (parsed once per distinct value), else
+    None."""
+    global _env_plan, _env_spec_seen
+    spec = os.environ.get("JEPSEN_FAULTS", "").strip()
+    if not spec:
+        return None
+    if spec != _env_spec_seen:
+        _env_spec_seen = spec
+        _env_plan = FaultPlan.from_spec(spec)
+    return _env_plan
+
+
+def plan_for(test: Optional[dict]) -> Optional[FaultPlan]:
+    """Resolve the fault plan for a run: the test map's ``"faults"``
+    spec (cached on the map so every checker in the run shares ONE call
+    counter), else the installed plan, else the ``JEPSEN_FAULTS`` plan.
+    The JAX package's order, where its `active_plan` reads the variable.
+
+    A set or sequence under ``"faults"`` is the nemesis vocabulary of
+    the JAX package's combined nemesis, not a resilience spec: only
+    dict/str specs (or a FaultPlan) select device-fault injection."""
+    if test:
+        spec = test.get("faults")
+        if isinstance(spec, FaultPlan):
+            return spec
+        if isinstance(spec, (dict, str)) and spec:
+            cached = test.get("faults-plan")
+            if isinstance(cached, FaultPlan):
+                return cached
+            plan = FaultPlan.from_spec(spec)
+            test["faults-plan"] = plan
+            return plan
+    return active_plan() or _from_env()

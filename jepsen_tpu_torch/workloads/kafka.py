@@ -51,8 +51,8 @@ the one-pass fact extraction the packed checker shares (`_observations`)
 and the scan twin (`KafkaChecker`).  With the same seeds and knobs the
 simulator writes the same history as the JAX one.  Left out: the
 `FaultPlan` branch of `KafkaClient._adversary` and its ``client.*``
-sites (`faults.plan_for` waits for the port's CLI and fault wiring), so
-only the probability knobs fire; the telemetry counter of each
+sites (they wait for the kafka demo of the port's CLI), so only the
+probability knobs fire; the telemetry counter of each
 injection; and `final_gen` / `workload()`, which need the generator
 framework.
 """

@@ -119,8 +119,10 @@ def _alone(p):
                                    1)[0]
 
 
-@pytest.mark.parametrize("name", list(BATCHES))
-def test_check_batch_equal_to_jax_and_to_each_alone(name):
+def check_batch_case(name):
+    """`check_batch` on corpus `name` equals the JAX package's and each
+    history checked alone (the slow corpora run from their own files:
+    `test_torch_batch_mixed.py`, `test_torch_batch_overflow.py`)."""
     ps = _port(BATCHES[name]())
     got = tb.check_batch(ps, device="cpu")
     assert got == _want(name)
@@ -136,6 +138,11 @@ def test_check_batch_equal_to_jax_and_to_each_alone(name):
     if name == "overflow":
         assert [r["valid?"] for r in got] == [True, False, True]
         assert not any(got[1]["counts"].values())
+
+
+@pytest.mark.parametrize("name", ["valid", "sizes"])
+def test_check_batch_equal_to_jax_and_to_each_alone(name):
+    check_batch_case(name)
 
 
 def test_overflow_row_takes_the_exact_rerun(monkeypatch):

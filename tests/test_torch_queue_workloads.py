@@ -153,7 +153,7 @@ def test_mem_queue_sim_writes_the_same_history(seed, knob):
 
 def test_mem_client_queue_ops_equal():
     """The port's MemClient on a direct op sequence, against the JAX one;
-    ops outside the queue raise."""
+    an op it does not know raises."""
     def run(m):
         c = m.MemClient(m.MemStore(), rng=random.Random(3), crash_p=0.1,
                         fail_p=0.1, dup_enqueue_p=0.2, lose_enqueue_p=0.1,
@@ -167,7 +167,7 @@ def test_mem_client_queue_ops_equal():
 
     assert run(jmem) == run(tmem)
     with pytest.raises(ValueError):
-        tmem.MemClient().invoke(None, {"f": "write", "value": 1})
+        tmem.MemClient().invoke(None, {"f": "frobnicate", "value": 1})
 
 
 def _observation_cases():

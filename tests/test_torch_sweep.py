@@ -225,3 +225,84 @@ def test_detect_cycles_polls_before_every_grow_retry():
                                          deadline=got, device="cpu"))
     assert got.sites == want.sites
     assert len(got.sites) >= 2 and set(got.sites) == {"cycle-sweep"}
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_windowed_fixpoint_gives_the_full_fixpoints_witnesses(seed):
+    # `detect_cycles` reads its fixpoint on rank windows; run to
+    # convergence both ways, the witnesses are the same
+    n_nodes = 30 + 7 * seed
+    arrays = random_graph(n_nodes, 2 * n_nodes, seed, n_chain=n_nodes // 3)
+    args = [torch.from_numpy(arrays[f]) for f in FIELDS]
+    full = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args)
+    win = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args, windowed=True)
+    assert full[3] and win[3]
+    assert (win[0], win[2]) == (full[0], full[2])
+    assert win[1].tolist() == full[1].tolist()
+    jhas, jwit, jn, jconv = jcs._sweep(n_nodes, 128, n_nodes + 1,
+                                       *map(jnp.asarray, arrays.values()))
+    assert (win[0], win[2], win[1].tolist()) == \
+        (bool(jhas), int(jn), np.asarray(jwit).tolist())
+
+
+def local_graph(n_nodes, seed, n_back=40, max_drop=6):
+    """A history-like graph: forward edges to the next few nodes in rank
+    order, and short backward edges scattered along it, so that the
+    windows are many small components."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n_nodes - 2), 2)
+    dst = src + np.tile([1, 2], n_nodes - 2)
+    keep = rng.random(len(src)) < np.where(dst == src + 1, 0.9, 0.3)
+    bsrc = rng.integers(max_drop, n_nodes, n_back)
+    bdst = bsrc - rng.integers(0, max_drop, n_back)
+    chain = np.arange(0, n_nodes, 7)
+    return {
+        "rank": np.arange(n_nodes, dtype=np.int32),
+        "nc_src": np.concatenate([src[keep], bsrc]).astype(np.int32),
+        "nc_dst": np.concatenate([dst[keep], bdst]).astype(np.int32),
+        "nc_mask": np.ones(int(keep.sum()) + n_back, bool),
+        "chain_nodes": chain.astype(np.int32),
+        "chain_starts": np.arange(len(chain)) % 2 == 0,
+        "chain_mask": np.ones(len(chain), bool),
+    }
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_windowed_fixpoint_on_local_backward_edges(seed):
+    n_nodes = 600
+    arrays = local_graph(n_nodes, seed)
+    args = [torch.from_numpy(arrays[f]) for f in FIELDS]
+    full = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args)
+    win = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args, windowed=True)
+    assert full[3] and win[3] and full[0]
+    assert 0 < int(full[1].sum()) < full[2]     # some edges on no cycle
+    assert (win[0], win[2], win[1].tolist()) == \
+        (full[0], full[2], full[1].tolist())
+    # the windows are short: a few rounds give the same witnesses
+    few = tcs._sweep_arrays(n_nodes, 128, 16, *args, windowed=True)
+    assert few[3] and few[1].tolist() == full[1].tolist()
+
+
+def test_detect_cycles_converges_past_the_round_cap():
+    # two short cycles at the head of a 3,000-node path: the full
+    # fixpoint runs the labels down the whole path (about 3,000 rounds,
+    # past MAX_ROUNDS_CAP, where the JAX sweep stops unconverged); the
+    # windowed one converges in a few rounds with the same witnesses
+    length = 3000
+    arrays = path_graph(length)
+    arrays["nc_mask"][-1] = False                 # no closing edge
+    for src, dst in ((2, 0), (10, 5)):
+        arrays["nc_src"] = np.append(arrays["nc_src"], np.int32(src))
+        arrays["nc_dst"] = np.append(arrays["nc_dst"], np.int32(dst))
+        arrays["nc_mask"] = np.append(arrays["nc_mask"], True)
+    gj, gt = graphs(length + 1, arrays)
+    want = jcs.detect_cycles(gj)
+    assert want.has_cycle and not want.converged
+    got = tcs.detect_cycles(gt, device="cpu")
+    assert got.has_cycle and got.converged and got.n_backward == 2
+    assert list(got.witness_edge_ids) == [length + 1, length + 2]
+    # the JAX fixpoint run to its end agrees
+    args = [jnp.asarray(arrays[f]) for f in FIELDS]
+    has, wit, n_back, conv = jcs._sweep(length + 1, 8, 4 * length, *args)
+    assert bool(conv) and bool(has) and int(n_back) == 2
+    assert np.asarray(wit).tolist()[:2] == [1, 1]
