@@ -32,12 +32,13 @@ Phases, each asserting; any failure exits non-zero:
         forward-fill and no segmented-OR launches per call, and its time
         beside phase 3's `core_check`;
      b. the stale-read corpus of phase 4 under strong snapshot isolation
-        at 32,768 txns: a G-single-family anomaly with explained cycles,
+        at 65,536 txns: a G-single-family anomaly with explained cycles,
         segmented-OR launches, and the check's time split into pad, infer,
         sweeps and host classification (witness BFS, cycle search,
         rendering);
      c. card == CPU: the whole result dict of 6b's check against the same
-        check on the CPU, on the same corpus at 16,384 txns;
+        check on the CPU, run in a worker process (`Twins`) beside the
+        card's phases;
      d. two op histories built with the port's `history` module (a G1c
         pair; G1a, G1b and internal) with their anomaly types, card ==
         CPU;
@@ -59,7 +60,8 @@ Phases, each asserting; any failure exits non-zero:
         the time split into fused path, sweeps, witness BFS, `find_cycle`,
         rendering and the rest (host inference);
      d. card == CPU: the whole result dict of `rw_register.check` on a
-        16,384-txn stale-read history (fused path first), every `infer_rw`
+        16,384-txn stale-read history (fused path first; the CPU's in a
+        worker process, `Twins`), every `infer_rw`
         array and the `rw_core_check` outputs at 65,536 txns, and
         `rw_core_check` on three op histories (one with cyclic versions);
      e. two `list_append.check` calls on one `HistoryIR` of phase 3's
@@ -110,9 +112,9 @@ Phases, each asserting; any failure exits non-zero:
      c. write skew, `ws_history(pairs=512, n_txns=100,000)`: valid and
         `inject_write_skew`;
      d. session, `sess_history(n_keys=64, n_txns=100,000)` with pinned
-        keys and at 50,000 txns without: valid and `inject_session_break`,
-        two LOCF launches per check; `predicate.check` on the same
-        `HistoryIR`, `infer_rw` run once for both;
+        keys and without: valid and `inject_session_break`, two LOCF
+        launches per check; `predicate.check` on the same `HistoryIR`,
+        `infer_rw` run once for both;
      e. the seven closed-predicate histories of
         `tests/test_closed_predicate.py`;
      f. card == CPU: the whole result dict of a-e, at full size where the
@@ -131,7 +133,7 @@ Phases, each asserting; any failure exits non-zero:
      b. 50,000 ops with each of the six adversarial knobs at 0.002, and
         with frozen commits (seeds in order until `stale-consumer-group`
         shows); at 25,000 ops the card == the scan twin `KafkaChecker`;
-     c. the total queue, `sim_mem_queue(0, ops=250,000)` drained: valid
+     c. the total queue, `sim_mem_queue(0, ops=500,000)` drained: valid
         with `fifo=False` and `fifo=True`; `lose_enqueue_p` gives
         `queue-lost`, `dup_enqueue_p` `queue-phantom`, and
         `reorder_dequeue_p` `queue-fifo-violation` with `fifo=True` only;
@@ -153,37 +155,38 @@ Phases, each asserting; any failure exits non-zero:
         sweep asks for more than the card holds): G-single cycles in
         projections 2-4, converged; the budget of each sweep, seg-OR
         launches, time and peak device memory.
- 12. BASELINE config 5 on one card: 8 of its 100 histories, each
+ 12. BASELINE config 5 on one card: 16 of its 100 histories, each
      `packed_la_history(1M, n_keys=125,000, mops_per_txn=4,
      read_frac=0.25, seed=i)` (`scripts/config5_batch.py`'s generator and
      key rule), every 4th with a failed writer (`seed_invalid`, a copy of
-     that script's) and history 2 with 64 stale reads:
-     a. `parallel.batch.check_batch_checkpointed` in groups of 4, whose
+     that script's) and history 2 with 64 stale reads, made in worker
+     processes (`Twins`) from the script's start:
+     a. `parallel.batch.check_batch_checkpointed` in groups of 8, whose
         `on_group` raises after the first durable group (the simulated
         crash); the call again resumes and computes group 1 only; the
         failed writers and the stale reads invalid, the rest valid, all
         exact, and every row's dict equal to the same history alone
         through `pad_packed` and `core_check_exact`;
      b. each group's wall time split into the pad (host, with the copy
-        of the stack to the card) and the card, txns/s over the 8M txns,
+        of the stack to the card) and the card, txns/s over the 16M txns,
         peak device memory and the launches of both kernels;
-     c. card == CPU: `check_batch` of 4 histories of 32,768 txns (two
-        valid, a failed writer, stale reads);
+     c. card == CPU: `check_batch` of 4 histories of 65,536 txns (two
+        valid, a failed writer, stale reads; the CPU's in a worker);
  13. a stored run streamed to the card through `store` and
      `checkers.elle.stream`:
-     a. `synth.la_history(n_txns=50,000, n_keys=6,250, concurrency=10)`
-        (100,000 ops) saved with `store.save_0` into a temporary store and
+     a. `synth.la_history(n_txns=100,000, n_keys=12,500, concurrency=10)`
+        (200,000 ops) saved with `store.save_0` into a temporary store and
         checked by `stream.check_stored`: valid, equal to `core_check_exact`
         on `pad_packed(pack_txns(h))`; the save, the staging (decode,
         pack and copies) against the decode and pack alone, the check,
         the chunks, peak device memory and launches;
      b. the same history with `inject_wr_cycle`: invalid, G1c;
-     c. `rw_history(n_txns=25,000)` through
+     c. `rw_history(n_txns=50,000)` through
         `check_stored(workload="rw-register")`, equal to `device_rw.check`;
      d. card == CPU at 16,384 txns: every staged array and the dicts of
         both routes;
  14. a Jepsen test run on the card, through `python -m jepsen_tpu_torch`'s
-     suite (`cli.run(cli.test_all_cmd(DEMOS, ...), argv)`, in process) on
+     suite (`cli.run(__main__.suite(), argv)`, in process) on
      the in-process sim cluster, with a store under `build/`:
      a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 100000
         --time-limit 120` (50 workers, 200,000 ops): exit 0, valid, no
@@ -213,7 +216,12 @@ the kernels' `launches` are their sum (phases 8 and 10 assert that they
 launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
-Longer output (the profiler's tables) goes to `chiprun_out/`.
+Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
+spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
+14b and 14c and, from the end of phase 6 on, make the seeded histories
+of phases 9-13, which those phases read back from files; the
+comparisons of 6c, 7d and 12c, and their lines, come after phase 14,
+and the workers are stopped before the script exits.
 
 Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
 """
@@ -239,10 +247,6 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
-N_API_STALE = 32_768         # 6b: at 65,536 the check took 77-107 s on
-                             # an H100 host, nearly all of it `find_cycle`
-N_API_CMP = 16_384           # 6c: card == CPU (the CPU check of 6b's
-                             # corpus took 83 s at 65,536 txns)
 G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
 #: the stale-read checks' model: it proscribes the G-single family and not
 #: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
@@ -278,8 +282,6 @@ N_BANK_READS = 1_000_000     # 9a: the reduction at scale, a PackedBank
 LF_KW = dict(groups=256, group_size=4, n_reads=50_000, seed=0)     # 9b
 WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
 SESS_KW = dict(n_keys=64, n_txns=100_000, seed=0)                  # 9d
-SESS_UNPINNED_TXNS = 50_000  # 9d without pinned keys: 8-9 s a check on
-                             # the host at 100,000
 N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
 INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
 #: 10: the kafka corpus's generator knobs (tests/test_queue_checkers.py)
@@ -297,7 +299,7 @@ KAFKA_INJECT_OPS = 50_000
 KAFKA_INJECTED = ("duplicate", "inconsistent-offsets", "int-send-skip",
                   "lost-write", "nonmonotonic-send")
 KAFKA_TWIN_OPS = 25_000      # 10b: the scan twin grows too fast for more
-QUEUE_OPS = 250_000          # 10c
+QUEUE_OPS = 500_000          # 10c
 QUEUE_INJECT_P = 0.001
 INT64_OPS = 86_000           # 10d: the smallest sim_kafka(0, ops=n), n a
                              # multiple of 1,000, whose epoch codes pass 2^30
@@ -312,19 +314,18 @@ SHAPES_10M = (1 << 24, 1 << 26, 1 << 28)
 #: a (3 * 2^26, 128) int8 plane, 24 GiB); 32 is scripts/tpu_10m.py's, and
 #: `core_check_exact` grows it while the sweep overflows
 MAX_K_10M = 32
-N_C5 = 8                     # 12: of BASELINE config 5's 100 histories
-C5_GROUP = 4                 # check_batch_checkpointed's group size
+N_C5 = 16                    # 12: of BASELINE config 5's 100 histories
+C5_GROUP = 8                 # check_batch_checkpointed's group size
 C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
 C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
 C5_STALE_AT = 2              # ... and this one N_STALE stale reads
-N_C5_CMP = 32_768            # 12c: card == CPU on 4 histories this size
-#: 13a: 50,000 txns, a quarter of the size first planned: at 200,000 the
-#: whole script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3
-#: host, phase 13 187.5 s of it, most of that the Python decode and pack
-#: of the stored ops, and phase 14 stores and decodes a 100,000-txn run
-#: of its own (PERF.md)
-STREAM_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
-STREAM_RW_KW = dict(n_txns=25_000, n_keys=3_125, concurrency=10, seed=0)
+N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
+#: 13a: 100,000 txns, half the size first planned: at 200,000 the whole
+#: script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3 host,
+#: phase 13 187.5 s of it, most of that the Python decode and pack of the
+#: stored ops (PERF.md)
+STREAM_KW = dict(n_txns=100_000, n_keys=12_500, concurrency=10, seed=0)
+STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
 N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
 #: flags of the JAX package's demo (`-n n1 ... -n n5 -c 10n`: 50 workers)
@@ -334,7 +335,13 @@ RUN_WR_OPS = 50_000          # 14d
 RUN_TIME_LIMIT = 120
 RUN_CHILD_OPS = 2_000        # 14e
 
+#: worker processes for the work that needs no card (`Twins`), and the
+#: torch threads of 14b's and 14c's twins there
+TWIN_WORKERS = 3
+APPEND_TWIN_THREADS = 4
+
 T_START = time.perf_counter()
+TWINS = None
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, and the
 # int32 rate outside the tensor cores (half the 67 TFLOP/s float32 rate:
@@ -492,6 +499,180 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
+QUEUE_KNOBS = ("drained", "lose_enqueue_p", "dup_enqueue_p",
+               "reorder_dequeue_p")   # 10c: each mem-store knob alone
+
+
+def queue_kw(what: str) -> dict:
+    return {} if what == "drained" else {what: QUEUE_INJECT_P}
+
+
+def stale_history(n_txns: int, n_keys: int, seed: int):
+    """11c's history: `packed_la_history` with `N_STALE` stale reads."""
+    from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    return stale_reads(packed_la_history(n_txns, n_keys=n_keys, seed=seed))
+
+
+def prefetch(twins) -> None:
+    """Submit the seeded histories of phases 9-13 to `twins`, in the
+    order the phases ask for them; each phase `get`s its own."""
+    from jepsen_tpu_torch.workloads import synth
+
+    twins.submit("9a", bank_history, **BANK_KW)
+    twins.submit("9b", lf_history, **LF_KW)
+    twins.submit("9c", ws_history, **WS_KW)
+    for pin in (True, False):
+        twins.submit(("9d", pin), sess_history, **SESS_KW, pin_keys=pin)
+    twins.submit("10a", sim_kafka, 0, **KAFKA_FULL)
+    for what in QUEUE_KNOBS:
+        twins.submit(("10c", what), sim_mem_queue, 0, ops=QUEUE_OPS,
+                     **queue_kw(what))
+    twins.submit("11a", synth.packed_la_history, N_10M, n_keys=N_KEYS_10M,
+                 seed=0)
+    twins.submit("11c", stale_history, N_10M, N_KEYS_10M, 0)
+    for i in range(N_C5):
+        twins.submit(("c5", i), config5_history, i, N_TXNS)
+    twins.submit("13a", synth.la_history, **STREAM_KW)
+    twins.submit("13c", synth.rw_history, **STREAM_RW_KW)
+
+
+def made(twins, key):
+    """`twins.get(key)` and its line's words: (history, "made in ... s in
+    a worker, read in ... s")."""
+    h, t, w = twins.get(key)
+    return h, f"made in {t:.2f} s in a worker, read in {w:.2f} s"
+
+
+class Twins:
+    """Work that needs no card, run in a pool of spawned worker processes
+    beside the card's phases: the seeded histories of phases 9-13, made
+    while phases 7-8 run, and the CPU twins of 6c, 7d, 12c, 14b and 14c.
+    A job's inputs go to the worker pickled, or it makes them from their
+    seeds with this script's own generators.  Its result comes back
+    through a file under `build/`, read where `get` asks for it, so that
+    no result is unpickled in this process while a phase is timed.
+    `later` keeps a comparison whose twin is still running, `finish`
+    makes every kept comparison (their lines are logged there, after
+    phase 14) and `close` stops the workers and removes the files."""
+
+    def __init__(self, n: int):
+        import multiprocessing as mp
+        import tempfile
+
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_twins_",
+                                    dir=os.path.join(HERE, "build"))
+        self.pool = mp.get_context("spawn").Pool(n, initializer=_twin_init)
+        self.jobs = {}
+        self.pending = []
+        self.n = 0
+
+    def submit(self, key, fn, *args, **kw):
+        path = os.path.join(self.dir, f"{self.n}.pkl")
+        self.n += 1
+        self.jobs[key] = (path, self.pool.apply_async(
+            _run_to_file, (path, fn) + args, kw))
+
+    def get(self, key):
+        """(result, the worker's seconds, the seconds waited and read
+        here)."""
+        import pickle
+
+        t0 = time.perf_counter()
+        path, job = self.jobs.pop(key)
+        t = job.get()
+        with open(path, "rb") as f:
+            out = pickle.load(f)
+        os.remove(path)
+        return out, t, time.perf_counter() - t0
+
+    def later(self, key, compare):
+        """Call `compare(result, worker's seconds)` in `finish`."""
+        self.pending.append((key, compare))
+
+    def finish(self):
+        t0 = time.perf_counter()
+        for key, compare in self.pending:
+            out, t, _ = self.get(key)
+            compare(out, t)
+        self.pending = []
+        log(f"[end] the twins' comparisons waited "
+            f"{time.perf_counter() - t0:.1f} s for their workers")
+
+    def close(self):
+        import shutil
+
+        self.pool.terminate()
+        self.pool.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _twin_init():
+    # leave the cores to the main process and the other workers
+    torch.set_num_threads(2)
+
+
+def _run_to_file(path, fn, *args, **kw):
+    """A worker's job: `fn(*args, **kw)` pickled to `path`; returns the
+    seconds it took."""
+    import pickle
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    t = time.perf_counter() - t0
+    with open(path, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return t
+
+
+def la_cpu(p, models):
+    """6c's twin: `list_append.check` of `p` on the CPU."""
+    from jepsen_tpu_torch.checkers.elle import list_append
+
+    return list_append.check(p, models, _force_no_fallback=True,
+                             device="cpu")
+
+
+def rw_cpu(q, models, fused_min_txns):
+    """7d's twin: `rw_register.check` of `q` on the CPU, with the card's
+    `FUSED_MIN_TXNS`."""
+    from jepsen_tpu_torch.checkers.elle import rw_register
+
+    rw_register.FUSED_MIN_TXNS = fused_min_txns
+    return rw_register.check(q, models, device="cpu")
+
+
+def append_cpu(run_dir: str, viz: dict | None = None):
+    """14b's and 14c's twin: the stored run at `run_dir`, decoded here,
+    through `AppendChecker(device="cpu")`.  With `viz` (a test map's
+    name, store-dir and start-time) the check writes its SVGs into a run
+    of its own there; they come back as (file name, bytes)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.workloads import append
+
+    # the workers are otherwise idle by phase 14: a check with backward
+    # edges sweeps (n, k) planes on the CPU, which one thread takes
+    # minutes over
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    test = store.load(run_dir)
+    history = test["history"].materialize()
+    r = append.AppendChecker(device="cpu").check(
+        test if viz is None else dict(viz), history)
+    svgs = []
+    for f in r.pop("viz-files", []):
+        with open(f, "rb") as fh:
+            svgs.append((os.path.basename(f), fh.read()))
+    return r, svgs
+
+
+def batch_cpu(ps):
+    """12c's twin: `check_batch` of `ps` on the CPU."""
+    from jepsen_tpu_torch.parallel import batch
+
+    return batch.check_batch(ps, device="cpu")
+
+
 def mem_rate(name: str) -> float:
     for key, rate in MEM_RATE.items():
         if key in name:
@@ -519,6 +700,9 @@ def main(argv=None) -> int:
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
     from jepsen_tpu_torch.ops import fill, kernels, scan
     from jepsen_tpu_torch.workloads.synth import packed_la_history
+
+    global TWINS
+    TWINS = twins = Twins(TWIN_WORKERS)
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -814,10 +998,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. the checker API on the card -----------------------------------
-    check_api(p, best, launches)
+    check_api(p, best, launches, twins)
+
+    # the histories of phases 9-13, made in the workers from here on
+    prefetch(twins)
 
     # ---- 7. the rw-register checker and HistoryIR on the card -------------
-    t7c = check_rw(p, best, launches, dev)
+    t7c = check_rw(p, best, launches, dev, twins)
     del p
     torch.cuda.empty_cache()
 
@@ -825,22 +1012,25 @@ def main(argv=None) -> int:
     check_knossos(dev, t7c)
 
     # ---- 9. the invariants and the closed predicate on the card -----------
-    check_invariants(dev, launches)
+    check_invariants(dev, launches, twins)
 
     # ---- 10. the queue/kafka checker family on the card -------------------
-    check_queue(dev)
+    check_queue(dev, twins)
 
     # ---- 11. the 10M-txn rung (BASELINE config 4) on the card -------------
-    check_10m(dev, launches)
+    check_10m(dev, launches, twins)
 
     # ---- 12. batched checking (BASELINE config 5) on the card -------------
-    check_config5(dev, launches)
+    check_config5(dev, launches, twins)
 
     # ---- 13. stored runs streamed to the card -----------------------------
-    check_stream(dev, launches)
+    check_stream(dev, launches, twins)
 
     # ---- 14. a Jepsen test run on the card --------------------------------
-    check_run(dev, launches)
+    check_run(dev, launches, twins)
+
+    # ---- the CPU twins' comparisons ----------------------------------------
+    twins.finish()
 
     kernels_line = {"kernels": [
         dict(name="locf", route="cuda",
@@ -863,10 +1053,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def check_api(p, best: float, launches: dict) -> None:
+def check_api(p, best: float, launches: dict, twins: Twins) -> None:
     """Phase 6: `list_append.check` on the card (see the module
     docstring).  `p` is phase 3's history, `best` its best `core_check`
-    time; the launches of each counted check are added to `launches`."""
+    time; the launches of each counted check are added to `launches`.
+    6c's CPU twin runs in `twins`."""
     from jepsen_tpu_torch.checkers.elle import list_append
     from jepsen_tpu_torch.ops import fill, scan
     from jepsen_tpu_torch.workloads.synth import packed_la_history
@@ -901,34 +1092,31 @@ def check_api(p, best: float, launches: dict) -> None:
         f"{N_TXNS / best6:.1f} ops/s; core_check (phase 3) best {best:.4f} "
         f"s, so the checker adds {best6 - best:.4f} s")
 
-    ps6 = stale_reads(packed_la_history(N_API_STALE,
-                                        n_keys=N_API_STALE // 8, seed=0))
+    ps6 = stale_reads(packed_la_history(N_SMALL, n_keys=N_SMALL // 8, seed=0))
+    twins.submit("6c", la_cpu, ps6, STALE_MODELS)
     r, t, n = counted_check(ps6, STALE_MODELS)
     assert r["valid?"] is False, r["anomaly-types"]
     family = sorted(set(r["anomaly-types"]) & G_SINGLE_FAMILY)
     assert family, r["anomaly-types"]
     n_cycles = explained_cycles(r)
     assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
-    log(f"[6b] stale reads, {N_API_STALE} txns, {'+'.join(STALE_MODELS)}: "
+    log(f"[6b] stale reads, {N_SMALL} txns, {'+'.join(STALE_MODELS)}: "
         f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
         f"projections; {family}; {n_cycles} cycles, every edge "
         f"explained; launches {n}")
 
     del ps6
-    # 6c: 6b's check on the card against the same check on the CPU, at
-    # N_API_CMP txns
-    psc = stale_reads(packed_la_history(N_API_CMP, n_keys=N_API_CMP // 8,
-                                        seed=0))
-    r = list_append.check(psc, STALE_MODELS, _force_no_fallback=True)
-    want, t_cpu = wall_s(lambda: list_append.check(
-        psc, STALE_MODELS, _force_no_fallback=True, device="cpu"))
-    assert r == want, (r, want)
-    assert r["valid?"] is False, r
-    log(f"[6c] {N_API_CMP} txns with stale reads: the result dicts are "
-        f"equal on card and CPU ({r['anomaly-types']}, "
-        f"{explained_cycles(r)} rendered cycles, not {r['not']}, "
-        f"also-not {r['also-not']}); the CPU check took {t_cpu:.4f} s")
-    del psc
+
+    def compare_6c(want, t_cpu, r=r):
+        # 6c: 6b's check on the card against the same check on the CPU
+        assert r == want, (r, want)
+        log(f"[6c] {N_SMALL} txns with stale reads: the result dicts are "
+            f"equal on card and CPU ({r['anomaly-types']}, "
+            f"{explained_cycles(r)} rendered cycles, not {r['not']}, "
+            f"also-not {r['also-not']}); the CPU check took {t_cpu:.4f} s "
+            f"in a worker")
+
+    twins.later("6c", compare_6c)
 
     for hname, h, expect in op_histories():
         got = list_append.check(h, ["strict-serializable"],
@@ -943,7 +1131,8 @@ def check_api(p, best: float, launches: dict) -> None:
     log(f"[6] launches on the main path, phases 3-4 and 6: {launches}")
 
 
-def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
+def check_rw(p_la, best: float, launches: dict, dev: torch.device,
+             twins: Twins) -> None:
     """Phase 7: the rw-register checker and `HistoryIR` on the card `dev`
     (see the module docstring).  `p_la` is phase 3's list-append history
     and `best` its best `core_check` time; the launches of each counted
@@ -983,7 +1172,7 @@ def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
     split = Split((("pad_packed", device_rw, "pad_packed"),
                    ("infer_rw", device_rw, "infer_rw"),
                    ("projection sweep", device_rw, "projection_scan"),
-                   ("version sweep", device_rw, "_sweep_arrays")))
+                   ("version sweep", device_rw, "_sweep_window")))
     torch.cuda.reset_peak_memory_stats()
     checks = []
     for _ in range(4):
@@ -1071,18 +1260,22 @@ def check_rw(p_la, best: float, launches: dict, dev: torch.device) -> None:
     # ---- 7d. card == CPU ----------------------------------------------------
     q = stale_reads_rw(packed_rw_history(
         N_CMP, n_keys=rw_keys_for(N_CMP), **RW_KW), N_STALE, seed=0)
+    twins.submit("7d", rw_cpu, q, STALE_MODELS, N_CMP)
     saved, rw_register.FUSED_MIN_TXNS = rw_register.FUSED_MIN_TXNS, N_CMP
     try:
         got = rw_register.check(q, STALE_MODELS)
-        want, t_cpu = wall_s(lambda: rw_register.check(q, STALE_MODELS,
-                                                       device="cpu"))
     finally:
         rw_register.FUSED_MIN_TXNS = saved
-    assert got == want, (got, want)
     assert got["valid?"] is False and explained_cycles(got) > 0, got
-    log(f"[7d] rw_register.check, {N_CMP} txns with stale reads, fused path "
-        f"first: the result dicts are equal on card and CPU "
-        f"({got['anomaly-types']}); the CPU check took {t_cpu:.4f} s")
+
+    def compare_7d(want, t_cpu, got=got):
+        assert got == want, (got, want)
+        log(f"[7d] rw_register.check, {N_CMP} txns with stale reads, fused "
+            f"path first: the result dicts are equal on card and CPU "
+            f"({got['anomaly-types']}); the CPU check took {t_cpu:.4f} s "
+            f"in a worker")
+
+    twins.later("7d", compare_7d)
     q = stale_reads_rw(packed_rw_history(
         N_SMALL, n_keys=rw_keys_for(N_SMALL), **RW_KW), N_STALE, seed=0)
     hc = device_infer.pad_packed(q, device="cpu")
@@ -1279,7 +1472,8 @@ def check_knossos(dev: torch.device, t7c: float) -> None:
         f"{time.perf_counter() - t8:.1f} s")
 
 
-def check_invariants(dev: torch.device, launches: dict) -> None:
+def check_invariants(dev: torch.device, launches: dict,
+                     twins: Twins) -> None:
     """Phase 9: the invariants checkers and the closed predicate on the
     card (see the module docstring).  The counters are set to 0 just
     before each check on the card and read just after; the sums go into
@@ -1371,10 +1565,8 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
     def bcheck(h, **kw):
         return bank.check(h, BANK_TEST, **kw)
 
-    t0 = time.perf_counter()
-    hb = bank_history(**BANK_KW)
-    log(f"[9a] bank_history({BANK_KW}): {len(hb.ops)} ops in "
-        f"{time.perf_counter() - t0:.2f} s")
+    hb, how = made(twins, "9a")
+    log(f"[9a] bank_history({BANK_KW}): {len(hb.ops)} ops {how}")
     ir = HistoryIR(hb)
     r, _ = cell("a", "bank, valid", bcheck, ir, ["bank"])
     assert r["valid?"] is True and \
@@ -1420,11 +1612,9 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
     del hb, ir, saved, bal, pb
 
     # ---- 9b. long fork ------------------------------------------------------
-    t0 = time.perf_counter()
-    h = lf_history(**LF_KW)
+    h, how = made(twins, "9b")
     ir = HistoryIR(h)
-    log(f"[9b] lf_history({LF_KW}): {len(h.ops)} ops in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"[9b] lf_history({LF_KW}): {len(h.ops)} ops {how}")
     r, _ = cell("b", "long fork, valid", predicate.check, ir, rw_sections)
     assert r["valid?"] is True and r["read-count"] == LF_KW["n_reads"], r
     twin("b", "long fork, valid", predicate.check, ir, r)
@@ -1437,11 +1627,9 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
     del h, ir
 
     # ---- 9c. write skew -----------------------------------------------------
-    t0 = time.perf_counter()
-    h = ws_history(**WS_KW)
+    h, how = made(twins, "9c")
     ir = HistoryIR(h)
-    log(f"[9c] ws_history({WS_KW}): {len(h.ops)} ops in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"[9c] ws_history({WS_KW}): {len(h.ops)} ops {how}")
     r, _ = cell("c", "write skew, valid", predicate.check, ir, rw_sections)
     assert r["valid?"] is True, r
     twin("c", "write skew, valid", predicate.check, ir, r)
@@ -1461,12 +1649,10 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
     locf0 = n9["locf"]
     for pin in (True, False):
         what = f"session, {'pinned keys, ' if pin else ''}"
-        t0 = time.perf_counter()
-        kw = SESS_KW if pin else dict(SESS_KW, n_txns=SESS_UNPINNED_TXNS)
-        h = sess_history(**kw, pin_keys=pin)
+        h, how = made(twins, ("9d", pin))
         ir = HistoryIR(h)
-        log(f"[9d] sess_history({kw}, pin_keys={pin}): {len(h.ops)} "
-            f"ops in {time.perf_counter() - t0:.2f} s")
+        log(f"[9d] sess_history({SESS_KW}, pin_keys={pin}): {len(h.ops)} "
+            f"ops {how}")
         with Split((("infer_rw", packed, "infer_rw"),)) as builds:
             r, n = cell("d", what + "valid", session.check, ir, rw_sections)
             assert r["valid?"] is True and "fallback" not in r, r
@@ -1532,7 +1718,7 @@ def check_invariants(dev: torch.device, launches: dict) -> None:
         f"{time.perf_counter() - t9:.1f} s")
 
 
-def check_queue(dev: torch.device) -> None:
+def check_queue(dev: torch.device, twins: Twins) -> None:
     """Phase 10: the queue/kafka checker family on the card (see the module
     docstring).  The family is plain torch ops and launches neither
     kernel."""
@@ -1557,7 +1743,7 @@ def check_queue(dev: torch.device) -> None:
         return r, t, part.s["device part"]
 
     # ---- 10a. kafka at full size ------------------------------------------
-    h, t_sim = wall_s(lambda: sim_kafka(0, **KAFKA_FULL))
+    h, t_sim, t_read = twins.get("10a")
     ir = HistoryIR(h)
     torch.cuda.reset_peak_memory_stats()
     r, t_warm, _ = on_card(kafka.check, ir)
@@ -1568,7 +1754,8 @@ def check_queue(dev: torch.device) -> None:
     host, t_host = wall_s(lambda: kafka.check(ir, use_device=False))
     assert host == r, (host, r)
     log(f"[10a] kafka, sim_kafka(0, {KAFKA_FULL}): {len(h.ops)} ops "
-        f"simulated in {t_sim:.2f} s; {pk.n_sends} sends, {pk.n_polls} "
+        f"simulated in {t_sim:.2f} s in a worker, read in {t_read:.2f} s; "
+        f"{pk.n_sends} sends, {pk.n_polls} "
         f"polls, {len(pk.m_key)} polled messages; build_s['queue:kafka'] "
         f"{ir.build_s['queue:kafka']:.4f} s; valid? {r['valid?']}; warm-up "
         f"{t_warm:.4f} s, timed "
@@ -1613,15 +1800,11 @@ def check_queue(dev: torch.device) -> None:
             f"{r['anomaly-types']}")
 
     # ---- 10c. the total queue ---------------------------------------------
-    for what, kw, want in (
-            ("drained", {}, ([], [])),
-            ("lose_enqueue_p", dict(lose_enqueue_p=QUEUE_INJECT_P),
-             ([fifo.LOST], [fifo.LOST])),
-            ("dup_enqueue_p", dict(dup_enqueue_p=QUEUE_INJECT_P),
-             ([fifo.PHANTOM], [fifo.PHANTOM])),
-            ("reorder_dequeue_p", dict(reorder_dequeue_p=QUEUE_INJECT_P),
-             ([], [fifo.FIFO]))):
-        h, t_sim = wall_s(lambda: sim_mem_queue(0, ops=QUEUE_OPS, **kw))
+    for what, want in zip(QUEUE_KNOBS, (
+            ([], []), ([fifo.LOST], [fifo.LOST]),
+            ([fifo.PHANTOM], [fifo.PHANTOM]), ([], [fifo.FIFO]))):
+        kw = queue_kw(what)
+        h, how = made(twins, ("10c", what))
         ir = HistoryIR(h)
         got = []
         for strict in (False, True):
@@ -1632,7 +1815,7 @@ def check_queue(dev: torch.device) -> None:
         assert tuple(g[0] for g in got) == want, (what, got)
         log(f"[10c] total queue, sim_mem_queue(0, ops={QUEUE_OPS}"
             f"{''.join(f', {k}={v}' for k, v in kw.items())}): "
-            f"{len(h.ops)} ops in {t_sim:.2f} s, build_s['queue:fifo'] "
+            f"{len(h.ops)} ops {how}, build_s['queue:fifo'] "
             f"{ir.build_s['queue:fifo']:.4f} s; fifo=False {got[0][0]} in "
             f"{got[0][1]:.4f} s (device part {got[0][2]:.4f} s), fifo=True "
             f"{got[1][0]} in {got[1][1]:.4f} s (device part "
@@ -1654,7 +1837,7 @@ def check_queue(dev: torch.device) -> None:
         f"{time.perf_counter() - t10:.1f} s")
 
 
-def check_10m(dev: torch.device, launches: dict) -> None:
+def check_10m(dev: torch.device, launches: dict, twins: Twins) -> None:
     """Phase 11: the list-append main path at BASELINE config 4's size on
     the card (see the module docstring).  The counters are set to 0 just
     before each counted check and read just after; the sums go into the
@@ -1666,7 +1849,6 @@ def check_10m(dev: torch.device, launches: dict) -> None:
     )
     from jepsen_tpu_torch.history.ir import HistoryIR
     from jepsen_tpu_torch.ops import fill, scan
-    from jepsen_tpu_torch.workloads.synth import packed_la_history
 
     t11 = time.perf_counter()
 
@@ -1680,15 +1862,13 @@ def check_10m(dev: torch.device, launches: dict) -> None:
         return out, t, n
 
     # ---- 11a. valid 10M ---------------------------------------------------
-    t0 = time.perf_counter()
-    p = packed_la_history(N_10M, n_keys=N_KEYS_10M, seed=0)
-    t_gen = time.perf_counter() - t0
+    p, how = made(twins, "11a")
     ir = HistoryIR(p)
     torch.cuda.reset_peak_memory_stats()
     h, t_pad = wall_s(lambda: ir.padded(device=dev))
     shapes = (h.txn_type.shape[0], h.mop_txn.shape[0], h.rd_elems.shape[0])
-    log(f"[11a] {N_10M} txns, {N_KEYS_10M} keys: generated in {t_gen:.2f} "
-        f"s, padded + staged in {t_pad:.2f} s (T={shapes[0]}, M={shapes[1]}, "
+    log(f"[11a] {N_10M} txns, {N_KEYS_10M} keys: {how}, padded + staged "
+        f"in {t_pad:.2f} s (T={shapes[0]}, M={shapes[1]}, "
         f"R={shapes[2]}, V={h.v_cap}, O={h.o_cap}); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
     assert shapes == SHAPES_10M, shapes
@@ -1779,10 +1959,8 @@ def check_10m(dev: torch.device, launches: dict) -> None:
     torch.cuda.empty_cache()
 
     # ---- 11c. stale 10M ---------------------------------------------------
-    t0 = time.perf_counter()
-    ps = stale_reads(p)
-    t_stale = time.perf_counter() - t0
     del p
+    ps, how = made(twins, "11c")
     hs, t_pad = wall_s(lambda: device_infer.pad_packed(ps, device=dev))
     torch.cuda.reset_peak_memory_stats()
     ks = []                      # the budget of each sweep the check ran
@@ -1799,8 +1977,8 @@ def check_10m(dev: torch.device, launches: dict) -> None:
     assert b[0:9] == [0] * 9 and b[9:12] == [1, 1, 1] and b[12] == 1, b
     assert int(over) == 0
     assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
-    log(f"[11c] {N_STALE} stale reads at {N_10M} txns (made in {t_stale:.2f} "
-        f"s, padded in {t_pad:.2f} s): core_check_exact from max_k "
+    log(f"[11c] {N_STALE} stale reads at {N_10M} txns ({how}, padded in "
+        f"{t_pad:.2f} s): core_check_exact from max_k "
         f"{MAX_K_10M}, sweeps at max_k {ks}: bits {b}, overflow "
         f"{int(over)}, {t_cyc:.4f} s; launches {n}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
@@ -1809,11 +1987,13 @@ def check_10m(dev: torch.device, launches: dict) -> None:
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
 
-def check_config5(dev: torch.device, launches: dict) -> None:
+def check_config5(dev: torch.device, launches: dict, twins: Twins) -> None:
     """Phase 12: BASELINE config 5 on one card (see the module
     docstring).  The counters are set to 0 just before the first
     `check_batch_checkpointed` call and read just after the resumed one;
-    the sums go into the main path's `launches`."""
+    the sums go into the main path's `launches`.  The histories come from
+    `twins`, which made them from their seeds while the earlier phases
+    ran (`prefetch`), and 12c's CPU twin runs there."""
     import shutil
     import tempfile
 
@@ -1822,13 +2002,16 @@ def check_config5(dev: torch.device, launches: dict) -> None:
     from jepsen_tpu_torch.parallel import batch
 
     t12 = time.perf_counter()
-    t0 = time.perf_counter()
-    ps = [config5_history(i, N_TXNS) for i in range(N_C5)]
-    t_gen = time.perf_counter() - t0
+    got = [twins.get(("c5", i)) for i in range(N_C5)]
+    ps = [p for p, _, _ in got]
+    t_gen = sum(t for _, t, _ in got)
+    t_wait = sum(w for _, _, w in got)
     invalid = [i for i in range(N_C5)
                if i % C5_INVALID_EVERY == C5_INVALID_EVERY - 1]
     log(f"[12a] {N_C5} histories of {N_TXNS} txns, {max(64, N_TXNS // 8)} "
-        f"keys, {C5_KW}: generated in {t_gen:.2f} s; a failed writer in "
+        f"keys, {C5_KW}: made in {t_gen:.2f} s in {TWIN_WORKERS} "
+        f"workers, waited for and read in {t_wait:.2f} s here; a failed "
+        f"writer in "
         f"{invalid}, {N_STALE} stale reads in {C5_STALE_AT}")
 
     class Crash(Exception):
@@ -1925,19 +2108,21 @@ def check_config5(dev: torch.device, launches: dict) -> None:
     torch.cuda.empty_cache()
     # ---- 12c. card == CPU on a mixed batch -------------------------------
     small = [config5_history(i, n_txns=N_C5_CMP) for i in range(4)]
+    twins.submit("12c", batch_cpu, small)
     (got, t_card) = wall_s(lambda: batch.check_batch(small, device=dev))
-    t0 = time.perf_counter()
-    want = batch.check_batch(small, device="cpu")
-    t_cpu = time.perf_counter() - t0
-    assert got == want, (got, want)
     assert [r["valid?"] for r in got] == [True, True, False, False], got
-    log(f"[12c] check_batch of 4 x {N_C5_CMP} txns (verdicts "
-        f"{[r['valid?'] for r in got]}): card == CPU; card {t_card:.4f} s, "
-        f"CPU {t_cpu:.4f} s")
+
+    def compare_12c(want, t_cpu, got=got, t_card=t_card):
+        assert got == want, (got, want)
+        log(f"[12c] check_batch of 4 x {N_C5_CMP} txns (verdicts "
+            f"{[r['valid?'] for r in got]}): card == CPU; card "
+            f"{t_card:.4f} s, CPU {t_cpu:.4f} s in a worker")
+
+    twins.later("12c", compare_12c)
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
 
 
-def check_stream(dev: torch.device, launches: dict) -> None:
+def check_stream(dev: torch.device, launches: dict, twins: Twins) -> None:
     """Phase 13: stored runs streamed to the card (see the module
     docstring).  The counters are set to 0 just before each
     `check_stored` of 13a-13c and read just after; the sums go into the
@@ -1995,9 +2180,7 @@ def check_stream(dev: torch.device, launches: dict) -> None:
 
     try:
         # ---- 13a. a valid stored run -------------------------------------
-        t0 = time.perf_counter()
-        h = synth.la_history(**STREAM_KW)
-        t_gen = time.perf_counter() - t0
+        h, how = made(twins, "13a")
         d, t_save = save("stream", h)
         n_chunks = len(store.load(d)["history"]._chunks)
         t0 = time.perf_counter()
@@ -2010,8 +2193,8 @@ def check_stream(dev: torch.device, launches: dict) -> None:
                 lambda: stream.check_stored(d, device=dev))
         assert r == alone(h) and r["valid?"] is True, r
         assert n["locf"] > 0, n
-        log(f"[13a] la_history({STREAM_KW}): {len(h)} ops generated in "
-            f"{t_gen:.2f} s; save_0 {t_save:.2f} s, {n_chunks} chunks of "
+        log(f"[13a] la_history({STREAM_KW}): {len(h)} ops {how}; save_0 "
+            f"{t_save:.2f} s, {n_chunks} chunks of "
             f"{store.format.CHUNK_SIZE} ops; decode and pack alone "
             f"{t_pack:.4f} s; check_stored valid in {t_check:.4f} s: "
             f"{split}, == pad_packed + core_check_exact; launches {n}; "
@@ -2032,9 +2215,7 @@ def check_stream(dev: torch.device, launches: dict) -> None:
             f"{split}; valid? False, cycles {r['cycles']}; launches {n}; "
             f"max_memory_allocated {peak} B")
         # ---- 13c. rw-register --------------------------------------------
-        t0 = time.perf_counter()
-        rw = synth.rw_history(**STREAM_RW_KW)
-        t_gen = time.perf_counter() - t0
+        rw, how = made(twins, "13c")
         d, t_save = save("stream-rw", rw)
         with split:
             r, t_check, n, peak = counted(lambda: stream.check_stored(
@@ -2042,8 +2223,8 @@ def check_stream(dev: torch.device, launches: dict) -> None:
         want = device_rw.check(pack_txns(rw, "rw-register"), device=dev)
         assert r == dict(want, **{"n-txns": r["n-txns"]}), (r, want)
         assert r["valid?"] is True, r
-        log(f"[13c] rw_history({STREAM_RW_KW}): generated in {t_gen:.2f} s, "
-            f"save_0 {t_save:.2f} s; check_stored(workload='rw-register') "
+        log(f"[13c] rw_history({STREAM_RW_KW}): {how}, save_0 "
+            f"{t_save:.2f} s; check_stored(workload='rw-register') "
             f"valid in {t_check:.4f} s: {split}, == device_rw.check of "
             f"pack_txns; "
             f"launches {n}; max_memory_allocated {peak} B")
@@ -2077,28 +2258,29 @@ def check_stream(dev: torch.device, launches: dict) -> None:
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
 
 
-def check_run(dev: torch.device, launches: dict) -> None:
+def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
     """Phase 14: a Jepsen test run on the card (see the module docstring),
     driven in process through `python -m jepsen_tpu_torch`'s suite
-    (`cli.run(cli.test_all_cmd(DEMOS, ...), argv)`).  The counters are
+    (`cli.run(__main__.suite(), argv)`).  The counters are
     set to 0 just before each `cli.run` of 14a-14d and read just after;
-    the sums go into the main path's `launches`."""
+    the sums go into the main path's `launches`.  The CPU twins of 14b
+    and 14c decode the stored runs and check them in `twins`, beside
+    14c-14e."""
     import shutil
 
     from jepsen_tpu_torch import cli, store
-    from jepsen_tpu_torch.__main__ import DEMOS, demo_checker
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
     from jepsen_tpu_torch.checkers import api as checker_api
     from jepsen_tpu_torch.checkers.elle import list_append
     from jepsen_tpu_torch.generator import interpreter
-    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
     from jepsen_tpu_torch.store.format import LazyHistory
-    from jepsen_tpu_torch.workloads import append, synth, wr
+    from jepsen_tpu_torch.workloads import synth, wr
 
     t14 = time.perf_counter()
     base = os.path.join(HERE, "build", "chip_smoke_runs")
     shutil.rmtree(base, ignore_errors=True)
-    suite = cli.test_all_cmd(DEMOS, checker_fn=demo_checker,
-                             prog="python -m jepsen_tpu_torch")
+    suite = demo_suite()
     nodes = [a for n in RUN_NODES for a in ("-n", n)]
     la = list_append
     # a run's stages: the workload (the interpreter), the two saves, the
@@ -2114,18 +2296,32 @@ def check_run(dev: torch.device, launches: dict) -> None:
               ("bfs", la, "_witness_regions"),
               ("find_cycle", la, "find_cycle"), ("render", la, "_render"))
 
+    backs = []
+    sweep = la.detect_cycles
+
+    def count_backward(*args, **kw):
+        res = sweep(*args, **kw)
+        backs.append(res.n_backward)
+        return res
+
     def counted(argv):
         """`cli.run(suite, argv)` with the counters set to 0 just before
         it and read just after; returns (exit code, Split, launches,
-        peak device memory, the history the run made or decoded)."""
+        peak device memory, the history the run made or decoded).  The
+        backward edges of each projection's sweep go into `backs`."""
+        backs.clear()
+        la.detect_cycles = count_backward
         split = Split(stages)
         keep = Split((("history", interpreter, "run"),
                       ("history", LazyHistory, "materialize")), keep=True)
         fill.LAUNCHES = 0
         scan.LAUNCHES = 0
         torch.cuda.reset_peak_memory_stats()
-        with split, keep:
-            rc = cli.run(suite, ["--store-dir", base, *argv])
+        try:
+            with split, keep:
+                rc = cli.run(suite, ["--store-dir", base, *argv])
+        finally:
+            la.detect_cycles = sweep
         n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
         for kname in launches:
             launches[kname] += n[kname]
@@ -2149,6 +2345,14 @@ def check_run(dev: torch.device, launches: dict) -> None:
         d = store.latest("demo-append", base=base)
         r14a = results(d)
         n_txns = sum(op.type == "invoke" for op in h)
+        # the completions' order against the apply order: past MAX_K_CAP
+        # backward edges in one projection the sweep cannot converge and
+        # the check says unknown (ROADMAP C)
+        n_back = max(backs, default=0)
+        assert n_back <= cycle_sweep.MAX_K_CAP, (
+            f"14a: {n_back} backward edges in one projection, past "
+            f"MAX_K_CAP = {cycle_sweep.MAX_K_CAP}: the sweep cannot "
+            f"converge on this run's order", r14a)
         assert rc == 0 and r14a["valid?"] is True, (rc, r14a)
         assert "error" not in r14a, r14a
         assert n["locf"] > 0, n
@@ -2160,20 +2364,17 @@ def check_run(dev: torch.device, launches: dict) -> None:
             f"{sp.s['check']:.4f} s, on the card {on_card(sp):.4f} s "
             f"(pad {sp.s['pad']:.4f}, infer {sp.s['infer']:.4f}, sweeps "
             f"{sp.s['sweeps']:.4f} s); save_1 {sp.s['save_1']:.2f} s; "
-            f"valid? {r14a['valid?']}; launches {n}; max_memory_allocated "
-            f"{peak} B")
+            f"valid? {r14a['valid?']}; backward edges per projection "
+            f"{backs}; launches {n}; max_memory_allocated {peak} B")
         # ---- 14b. analyze DIR, and the CPU ---------------------------------
+        twins.submit("14b", append_cpu, d)
         rc, sp, n, peak, stored = counted(["analyze", d])
         assert rc == 0, rc
         assert results(d) == r14a
-        r_cpu, t_cpu = wall_s(lambda: append.AppendChecker(
-            device="cpu").check(store.load(d), stored))
-        assert r_cpu == r14a, (r_cpu, r14a)
         log(f"[14b] analyze {os.path.basename(d)}: decode "
             f"{sp.s['decode']:.2f} s, check {sp.s['check']:.4f} s (on the "
             f"card {on_card(sp):.4f} s), the dict equal to 14a's; launches "
-            f"{n}; AppendChecker(device='cpu') on the stored history "
-            f"{t_cpu:.4f} s, equal")
+            f"{n}")
         # ---- 14c. one G1c in the stored history, saved, analyze ----------
         # 14b is done with the decoded history: inject into it in place
         t0 = time.perf_counter()
@@ -2183,6 +2384,10 @@ def check_run(dev: torch.device, launches: dict) -> None:
               "start-time": time.time(), "history": stored}
         (_, t_save) = wall_s(lambda: store.save_0(tc))
         dc = store.test_dir(tc)
+        # card == CPU: the CPU check writes its SVGs into a run of its own
+        twins.submit("14c", append_cpu, dc, {
+            "name": "demo-append-cpu", "start-time": tc["start-time"],
+            "store-dir": os.path.join(twins.dir, "runs")})
         rc, sp, n, peak, _ = counted(["analyze", dc])
         r14c = results(dc)
         assert rc == 1 and r14c["valid?"] is False, (rc, r14c)
@@ -2191,16 +2396,10 @@ def check_run(dev: torch.device, launches: dict) -> None:
         svgs = r14c.get("viz-files") or []
         assert svgs and all(os.path.dirname(f) == os.path.join(dc, "elle")
                             and os.path.getsize(f) > 0 for f in svgs), svgs
-        # card == CPU: the CPU check writes its SVGs into a run of its own
-        tcpu = {"name": "demo-append-cpu", "store-dir": base,
-                "start-time": tc["start-time"]}
-        r_cpu, t_cpu = wall_s(lambda: append.AppendChecker(
-            device="cpu").check(tcpu, stored))
-        svgs_cpu = r_cpu.pop("viz-files", [])
-        assert r_cpu == {k: v for k, v in r14c.items() if k != "viz-files"}
-        assert [(os.path.basename(f), open(f, "rb").read())
-                for f in svgs_cpu] == \
-            [(os.path.basename(f), open(f, "rb").read()) for f in svgs]
+        svg_bytes = []
+        for f in svgs:
+            with open(f, "rb") as fh:
+                svg_bytes.append((os.path.basename(f), fh.read()))
         log(f"[14c] inject_wr_cycle ({t_inject:.2f} s), save_0 "
             f"{t_save:.2f} s; analyze: valid? False, "
             f"{r14c['anomaly-types']}, {len(svgs)} SVGs under elle/; decode "
@@ -2208,8 +2407,7 @@ def check_run(dev: torch.device, launches: dict) -> None:
             f"card {on_card(sp):.4f} s: pad {sp.s['pad']:.4f}, infer "
             f"{sp.s['infer']:.4f}, sweeps {sp.s['sweeps']:.4f} s; host "
             f"classification {host_s(sp):.4f} s); launches {n}; "
-            f"max_memory_allocated {peak} B; AppendChecker(device='cpu') "
-            f"{t_cpu:.4f} s: the same dict and SVG bytes")
+            f"max_memory_allocated {peak} B")
         del stored, h
         # ---- 14d. test-all --only wr -----------------------------------
         rc, sp, n, peak, hw = counted([
@@ -2252,6 +2450,18 @@ def check_run(dev: torch.device, launches: dict) -> None:
             f"{RUN_CHILD_OPS} (no --cpu): exit 0 in {t_child:.2f} s, "
             f"results.json valid? true, {len(imported)} modules imported, "
             f"none of jax or jepsen_tpu")
+        # ---- 14b-14c's CPU twins, before the runs they read are removed
+        (r_cpu, _), t_cpu, t_wait = twins.get("14b")
+        assert r_cpu == r14a, (r_cpu, r14a)
+        log(f"[14b] AppendChecker(device='cpu') on the stored history in a "
+            f"worker, decode included: {t_cpu:.4f} s, the dict equal "
+            f"(waited {t_wait:.2f} s)")
+        (r_cpu, svgs_cpu), t_cpu, t_wait = twins.get("14c")
+        assert r_cpu == {k: v for k, v in r14c.items() if k != "viz-files"}
+        assert svgs_cpu == svg_bytes, [f for f, _ in svgs_cpu]
+        log(f"[14c] AppendChecker(device='cpu') on the stored history in a "
+            f"worker, decode included: {t_cpu:.4f} s, the same dict and "
+            f"SVG bytes (waited {t_wait:.2f} s)")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
@@ -2902,4 +3112,9 @@ def profile(phase: int, what: str, fname: str, fn) -> dict[str, int]:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if TWINS is not None:
+            TWINS.close()
+    sys.exit(code)

@@ -12,12 +12,13 @@ The demos are the two Elle workloads, ``append`` and ``wr``.  Their
 checkers run on the CUDA card, or on the CPU under ``--cpu``.  The JAX
 package's other nine demos wait for their workloads (ROADMAP A).
 `analyze DIR` re-checks a stored demo run with the checker of the demo
-its stored name names.
+its stored name names (`suite`).
 """
 
 from __future__ import annotations
 
 import random
+import sys
 from typing import Any, Dict
 
 from . import cli
@@ -68,21 +69,47 @@ def _demo_test(name: str):
 DEMOS = {n: _demo_test(n) for n in ("append", "wr")}
 
 
-def demo_checker(test: Dict[str, Any]):
+def demo_checker(name: str, cpu: bool = False):
     """The checker of the demo that a stored run's name (``demo-<name>``)
-    names, on the device its ``"cpu"`` flag picks: `analyze`'s
-    `checker_fn`."""
-    name = str(test.get("name") or "")
+    names, on the CPU under `cpu`."""
     demo = name[len("demo-"):] if name.startswith("demo-") else None
     if demo not in DEMOS:
         raise ValueError(f"no demo named by the stored run {name!r} "
                          f"(have: {', '.join('demo-' + d for d in DEMOS)})")
-    return _wl(demo, test)[0]["checker"]
+    return _wl(demo, {"cpu": cpu})[0]["checker"]
+
+
+def suite():
+    """The demos' (parser, dispatch).  `analyze DIR`'s checker is the
+    one of the demo that the stored run at DIR names, on the CPU under
+    ``--cpu``: `checker_fn` reads both from the options being
+    dispatched."""
+    seen: Dict[str, Any] = {}
+
+    def checker_fn():
+        from . import store
+
+        opts = seen["opts"]
+        try:
+            name = str(store.load(opts.dir).get("name") or "")
+            return demo_checker(name, opts.cpu)
+        except (ValueError, FileNotFoundError) as e:
+            # with no checker, analyze reports the run it cannot check
+            print(f"analyze: {e}", file=sys.stderr)
+            return None
+
+    p, dispatch = cli.test_all_cmd(DEMOS, checker_fn=checker_fn,
+                                   prog="python -m jepsen_tpu_torch")
+
+    def remember(opts):
+        seen["opts"] = opts
+        return dispatch(opts)
+
+    return p, remember
 
 
 def main(argv=None) -> None:
-    cli.main(cli.test_all_cmd(DEMOS, checker_fn=demo_checker,
-                              prog="python -m jepsen_tpu_torch"), argv)
+    cli.main(suite(), argv)
 
 
 if __name__ == "__main__":

@@ -47,7 +47,7 @@ and pinned by `tests/test_torch_rw_register.py`:
   (`writer[ev]`, `rt_sorted[...]`, `offsets[...]`, `lo[...]`): torch
   raises where JAX clamps.
 - The version sweep has `V + n_keys` nodes (not a power of two) and no
-  chains; `_sweep_arrays` and the seg-OR wrapper take both.
+  chains; `_sweep_window` and the seg-OR wrapper take both.
 
 `check` is the grow loop of the JAX `check` under `resilience.device_call`
 with a deadline poll before each try.  There is no compile cache: it
@@ -88,7 +88,7 @@ from jepsen_tpu_torch.history.soa import (
     TXN_INFO,
     TXN_OK,
 )
-from jepsen_tpu_torch.ops.cycle_sweep import _sweep_arrays, projection_scan
+from jepsen_tpu_torch.ops.cycle_sweep import _sweep_window, projection_scan
 from jepsen_tpu_torch.ops.segments import segmented_cummax, segmented_cumsum
 
 NO_PREV = -3
@@ -366,7 +366,7 @@ def rw_core_check(h: PaddedLA, n_keys: int, max_k: int = 128,
     ver = out["versions"]
     vempty_i = torch.zeros(0, dtype=I32, device=dev)
     vempty_b = torch.zeros(0, dtype=torch.bool, device=dev)
-    v_has, _, v_back, v_conv = _sweep_arrays(
+    v_has, _, v_back, v_conv = _sweep_window(
         h.rd_elems.shape[0] + max(n_keys, 1), max_k, max_rounds,
         ver["rank"], ver["src"], ver["dst"], ver["mask"], vempty_i,
         vempty_b, vempty_b)

@@ -291,16 +291,25 @@ class _Adj:
             if s != prev:
                 self._ends[s] = i + 1
                 prev = s
+        self._nbrs: Dict[int, list] = {}
 
     def __len__(self):
         return len(self.src)
 
     def neighbors(self, v: int):
-        a = self._starts.get(v)
-        if a is None:
-            return ()
-        b = self._ends[v]
-        return zip(self.dst[a:b].tolist(), self.rel[a:b].tolist())
+        """v's (dst, rel) pairs in edge order, built once per node: the
+        searches visit the same nodes many times."""
+        out = self._nbrs.get(v)
+        if out is None:
+            a = self._starts.get(v)
+            if a is None:
+                out = []
+            else:
+                b = self._ends[v]
+                out = list(zip(self.dst[a:b].tolist(),
+                               self.rel[a:b].tolist()))
+            self._nbrs[v] = out
+        return out
 
     def rw_edges(self):
         m = self.rel == REL_RW
@@ -314,13 +323,19 @@ def _bfs_path(adj: _Adj, src: int, dst: int, budget: List[int]
     parents: Dict[int, Tuple[int, int]] = {}
     q = deque([src])
     seen = {src} if src != dst else set()
+    # the budget is counted in a local and written back at every return
+    left = budget[0]
+    neighbors, popleft, push, mark = adj.neighbors, q.popleft, q.append, \
+        seen.add
     while q:
-        v = q.popleft()
-        for (w, rel) in adj.neighbors(v):
-            budget[0] -= 1
-            if budget[0] <= 0:
+        v = popleft()
+        for (w, rel) in neighbors(v):
+            left -= 1
+            if left <= 0:
+                budget[0] = left
                 return None
             if w == dst:
+                budget[0] = left
                 path = [(v, rel, w)]
                 while v != src:
                     pv, prel = parents[v]
@@ -329,9 +344,10 @@ def _bfs_path(adj: _Adj, src: int, dst: int, budget: List[int]
                 path.reverse()
                 return path
             if w not in seen:
-                seen.add(w)
+                mark(w)
                 parents[w] = (v, rel)
-                q.append(w)
+                push(w)
+    budget[0] = left
     return None
 
 

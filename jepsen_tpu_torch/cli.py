@@ -155,17 +155,11 @@ def run_test_cmd(test_fn: Callable[[Dict[str, Any]], Dict[str, Any]],
 
 
 def analyze_cmd(opts: argparse.Namespace,
-                checker_fn: Optional[Callable[[dict], Any]] = None) -> int:
-    """Re-check a stored run (reference: store/load + re-check path).
-
-    `checker_fn(test)` gets the stored test map, with this command's
-    ``"cpu"`` flag, and returns the checker, so one suite of several
-    tests re-checks each run with its own (the JAX package calls its
-    `checker_fn` with no argument)."""
+                checker_fn: Optional[Callable[[], Any]] = None) -> int:
+    """Re-check a stored run (reference: store/load + re-check path)."""
+    chk = checker_fn() if checker_fn else None
     try:
-        t = store.load(opts.dir)
-        t["cpu"] = opts.cpu
-        t = core.analyze(t, checker=checker_fn(t) if checker_fn else None)
+        t = core.analyze(opts.dir, checker=chk)
     except (ValueError, FileNotFoundError) as e:
         print(f"analyze: {e}", file=sys.stderr)
         return 2

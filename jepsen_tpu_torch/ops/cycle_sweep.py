@@ -18,14 +18,16 @@ branches, and the scan over projections is a Python loop.  A result with
 `converged=False` must not be trusted (`list_append.check` raises on it;
 the JAX package falls back to its host oracle).
 
-One change from the JAX module: `detect_cycles` reads its fixpoint on
-rank windows (`_rank_window`), so its rounds are bounded by the backward
-edges' rank drops, not by how far the history runs past them.  Its
-results are the JAX module's wherever that one converges; a history
-that is long after an early backward edge, which the JAX module cannot
-sweep within `MAX_ROUNDS_CAP`, converges here.  `projection_scan`, whose
-convergence bit is one of `core_check`'s verdict bits, keeps the JAX
-fixpoint.
+One change from the JAX module: the fixpoint is read on rank windows
+(`_rank_window`), so its rounds are bounded by the backward edges' rank
+drops, not by how far the history runs past them.  Its witnesses are
+the JAX module's wherever that one converges, and it converges in at
+most as many rounds; a history that is long after an early backward
+edge, which the JAX module cannot sweep within `MAX_ROUNDS_CAP`,
+converges here.  And past `MAX_K_CAP` backward edges, where the JAX
+module reports itself inexact, `detect_cycles` sweeps the components of
+their rank intervals in batches (`_by_components`), exact while no
+component holds more than `MAX_K_CAP`.
 """
 
 from __future__ import annotations
@@ -106,9 +108,9 @@ def _seed_labels(n_nodes: int, k: int, bdst, bvalid) -> torch.Tensor:
     return labels[:n_nodes]
 
 
-def _rank_window(n_nodes: int, rank, bsrc, bdst, bvalid) -> torch.Tensor:
-    """(n_nodes, k) bool: the nodes in backward edge e's window, those
-    with rank at most the least of two bounds on any cycle through e.
+def _rank_window(rank, bsrc, bdst, bvalid) -> torch.Tensor:
+    """(k,) int64: backward edge e's window, the greatest rank that any
+    cycle through e can reach (-1 for an invalid e).
 
     Forward edges raise rank and only backward edges lower it, so a
     cycle's backward edges cover its whole rank range with their
@@ -117,46 +119,66 @@ def _rank_window(n_nodes: int, rank, bsrc, bdst, bvalid) -> torch.Tensor:
     backward edges' drops.  So a cycle through e ends, in rank, at the
     right end of the component of overlapping intervals that holds e's,
     and within rank(dst(e)) + S, S summing every backward edge's drop.
-    Reachability past the window closes no cycle through e: a fixpoint
-    read on the windows alone gives the same witnesses as the full one,
-    in rounds bounded by the windows' lengths, however far the graph
-    runs past its backward edges."""
-    r = rank[:n_nodes].to(torch.int64)
+    Reachability past the window closes no cycle through e.  Every
+    backward edge of the graph must be among the valid ones."""
     rs = rank[bsrc.long()].to(torch.int64)
     rd = rank[bdst.long()].to(torch.int64)
     drops = torch.where(bvalid, rs - rd, 0).sum()
-    # components of the intervals, in order of rd: one starts where rd
-    # passes every earlier interval's right end
-    big = torch.iinfo(torch.int64).max
-    order = torch.argsort(torch.where(bvalid, rd, big), stable=True)
-    rd_o = rd[order]
+    order, comp = _interval_components(rd, rs, bvalid)
     rs_o = torch.where(bvalid[order], rs[order], -1)
-    reach = torch.cummax(rs_o, 0).values
-    starts = torch.ones_like(bvalid)
-    starts[1:] = rd_o[1:] > reach[:-1]
-    comp = torch.cumsum(starts.to(torch.int64), 0) - 1
     right = torch.full_like(rs_o, -1).scatter_reduce_(
         0, comp, rs_o, "amax", include_self=True)
     right_of = torch.empty_like(right)
     right_of[order] = right[comp]
-    limit = torch.where(bvalid, torch.minimum(rd + drops, right_of), -1)
-    return r[:, None] <= limit[None, :]
+    return torch.where(bvalid, torch.minimum(rd + drops, right_of), -1)
+
+
+def _interval_components(rd, rs, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The components of overlapping [rd, rs] intervals: (order, comp),
+    the intervals sorted by rd (the invalid last, each a component of its
+    own) and each one's component id in that order, ids rising with rd.
+    A component starts where rd passes every earlier interval's right
+    end.  Every cycle's backward edges lie in one component."""
+    big = torch.iinfo(torch.int64).max
+    order = torch.argsort(torch.where(valid, rd, big), stable=True)
+    rd_o = torch.where(valid[order], rd[order], big)
+    rs_o = torch.where(valid[order], rs[order], -1)
+    reach = torch.cummax(rs_o, 0).values
+    starts = torch.ones_like(valid)
+    starts[1:] = rd_o[1:] > reach[:-1]
+    return order, torch.cumsum(starts.to(torch.int64), 0) - 1
+
+
+def _changed_in_window(diff, rank, limit) -> bool:
+    """Whether `diff` (N, k) bool holds a change at a node inside its
+    column's window (rank <= limit), read over blocks of rows so that no
+    second (N, k) plane is made."""
+    n, k = diff.shape
+    rows = max(1, (1 << 24) // max(k, 1))
+    hit = torch.zeros((), dtype=torch.bool, device=diff.device)
+    for a in range(0, n, rows):
+        b = min(a + rows, n)
+        r = rank[a:b].to(torch.int64)
+        hit |= (diff[a:b] & (r[:, None] <= limit[None, :])).any()
+    return bool(hit)
 
 
 def _sweep_window(n_nodes: int, k: int, max_rounds: int,
                   rank, nc_src, nc_dst, nc_mask,
                   chain_nodes, chain_starts, chain_mask,
-                  back_raw=None, back_pre=None, back_tables=None,
-                  windowed: bool = False
+                  back_raw=None, back_pre=None, back_tables=None
                   ) -> Tuple[bool, torch.Tensor, int, bool]:
     """Sweep over the first `k` backward edges.  Returns (has_cycle,
-    witness_bits (k,) int8, n_backward, converged).
+    witness_bits (k,) int8, n_backward, converged); n_backward may
+    exceed k (the first k are exact and the caller must grow the
+    budget).
 
     `back_pre` = (is_back, back_id, n_back) and `back_tables` = (bsrc,
     bdst) let `projection_scan` hand in the enumeration it hoisted;
-    without them the edges are enumerated here in position order.  With
-    `windowed`, the fixpoint has converged once nothing changes inside
-    the rank windows (`_rank_window`)."""
+    without them the edges are enumerated here in position order.  When
+    the first k hold every backward edge, the fixpoint has converged once
+    nothing changes inside the rank windows (`_rank_window`); otherwise
+    the windows are unknown and it runs until nothing changes at all."""
     if back_pre is not None:
         is_back, back_id, n_back = back_pre
     else:
@@ -191,15 +213,14 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
         return scatter_or(labels, nc_dst, vals, fwd_mask)
 
     labels = chain_pass(_seed_labels(n_nodes, k, bdst, bvalid))
-    window = (_rank_window(n_nodes, rank, bsrc, bdst, bvalid)
-              if windowed else None)
+    limit = _rank_window(rank, bsrc, bdst, bvalid) if n_back <= k else None
     changed, rounds = True, 0
     while changed and rounds < max_rounds:
         new = chain_pass(relax_pass(chain_pass(labels)))
         diff = new != labels
-        if window is not None:
-            diff &= window
         changed = bool(torch.any(diff))
+        if changed and limit is not None:
+            changed = _changed_in_window(diff, rank, limit)
         labels = new
         rounds += 1
     converged = not (changed and rounds >= max_rounds)
@@ -221,19 +242,6 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
     return bool(torch.any(witness == 1)), witness, n_back, converged
 
 
-def _sweep_arrays(n_nodes: int, max_k: int, max_rounds: int,
-                  rank, nc_src, nc_dst, nc_mask,
-                  chain_nodes, chain_starts, chain_mask, back_raw=None,
-                  back_pre=None, back_tables=None, windowed: bool = False):
-    """Single-window sweep.  Returns (has_cycle, witness_bits (max_k,)
-    int8, n_backward, converged); n_backward may exceed max_k (the first
-    max_k are exact and the caller must grow the budget)."""
-    return _sweep_window(n_nodes, max_k, max_rounds, rank, nc_src, nc_dst,
-                         nc_mask, chain_nodes, chain_starts, chain_mask,
-                         back_raw=back_raw, back_pre=back_pre,
-                         back_tables=back_tables, windowed=windowed)
-
-
 def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
                     rank, e_src, e_dst, fam_masks: Sequence[torch.Tensor],
                     inc_stack: Sequence[Sequence[int]],
@@ -241,7 +249,7 @@ def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
                     chain_masks: Sequence[torch.Tensor],
                     cinc_stack: Sequence[Sequence[int]]
                     ) -> Tuple[bool, int, List[int]]:
-    """`_sweep_arrays` over projections given per-family masks and
+    """`_sweep_window` over projections given per-family masks and
     per-projection family-include flags.
 
     Backward-edge enumeration is hoisted to ONE cumsum over the union of
@@ -311,7 +319,7 @@ def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
             bsrc = torch.where(sel, e_src[pos], bsrc)
             bdst = torch.where(sel, e_dst[pos], bdst)
 
-        has, _, n_back_out, conv = _sweep_arrays(
+        has, _, n_back_out, conv = _sweep_window(
             n_nodes, max_k, max_rounds, rank, e_src, e_dst, m,
             chain_nodes, chain_starts, cm,
             back_pre=(is_back, back_id, n_back), back_tables=(bsrc, bdst))
@@ -350,14 +358,14 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
     while True:
         if deadline is not None:
             deadline.check("cycle-sweep")
-        has, wit, n_back, conv = _sweep_arrays(g.n_nodes, max_k, max_rounds,
-                                               *arrays, windowed=True)
+        has, wit, n_back, conv = _sweep_window(g.n_nodes, max_k, max_rounds,
+                                               *arrays)
         if n_back > max_k:
             if n_back > MAX_K_CAP or max_k >= MAX_K_CAP:
-                # bit budget unreachable or exhausted: report inexact
-                return SweepResult(has_cycle=has,
-                                   witness_edge_ids=np.zeros(0, np.int64),
-                                   n_backward=n_back, converged=False)
+                # past the bit budget: sweep the components of the
+                # backward edges in batches, or report inexact
+                return _by_components(g, arrays, has, n_back, max_rounds,
+                                      deadline)
             max_k = min(max(max_k * 2, _pow2(n_back)), MAX_K_CAP)
             continue
         if not conv and max_rounds < MAX_ROUNDS_CAP:
@@ -381,6 +389,65 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
         if len(back_pos) else np.zeros(0, np.int64)
     return SweepResult(has_cycle=has, witness_edge_ids=wit_ids,
                        n_backward=n_back, converged=conv)
+
+
+def _by_components(g: SweepGraph, arrays, has: bool, n_back: int,
+                   max_rounds: int, deadline) -> SweepResult:
+    """`detect_cycles` past `MAX_K_CAP` backward edges (the JAX module
+    reports itself inexact there).  Every cycle's backward edges lie in
+    one component of overlapping rank intervals
+    (`_interval_components`), so a sweep over whole components, with the
+    other backward edges left out of the graph, finds every cycle
+    through them.  The components go into batches of at most k edges, k
+    the least power of two (from 128) that holds the largest; each batch
+    is swept to convergence, growing its rounds up to `MAX_ROUNDS_CAP`.
+    A component of more than `MAX_K_CAP` edges leaves the result inexact,
+    as before."""
+    rank, nc_src, nc_dst, nc_mask = arrays[:4]
+    is_back = nc_mask & backward_test(rank, nc_src, nc_dst, g.n_nodes)
+    pos = torch.nonzero(is_back).flatten()
+    rs = rank[nc_src[pos].clamp(0, g.n_nodes - 1).long()].to(torch.int64)
+    rd = rank[nc_dst[pos].clamp(0, g.n_nodes - 1).long()].to(torch.int64)
+    order, comp = _interval_components(rd, rs,
+                                       torch.ones_like(pos, dtype=torch.bool))
+    sizes = torch.bincount(comp).tolist()
+    if max(sizes) > MAX_K_CAP:
+        return SweepResult(has_cycle=has,
+                           witness_edge_ids=np.zeros(0, np.int64),
+                           n_backward=n_back, converged=False)
+    k = max(128, _pow2(max(sizes)))
+    # whole components in rank order, at most k edges a batch
+    cuts, filled = [0], 0
+    for size in sizes:
+        if filled + size > k:
+            cuts.append(cuts[-1] + filled)
+            filled = 0
+        filled += size
+    cuts.append(len(pos))
+    forward = nc_mask & ~is_back
+    found, converged = [], True
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        if deadline is not None:
+            deadline.check("cycle-sweep")
+        batch = torch.sort(pos[order[a:b]]).values
+        mask = forward.clone()
+        mask[batch] = True
+        rounds = max_rounds
+        while True:
+            has_b, wit, _, conv = _sweep_window(
+                g.n_nodes, k, rounds, rank, nc_src, nc_dst, mask,
+                *arrays[4:])
+            if conv or rounds >= MAX_ROUNDS_CAP:
+                break
+            rounds = min(rounds * 2, MAX_ROUNDS_CAP)
+        converged = converged and conv
+        if has_b:
+            found.append(batch[torch.nonzero(wit[:b - a]).flatten()])
+    wit_ids = (torch.sort(torch.cat(found)).values.cpu().numpy()
+               .astype(np.int64) if found else np.zeros(0, np.int64))
+    return SweepResult(has_cycle=bool(len(wit_ids)),
+                       witness_edge_ids=wit_ids, n_backward=n_back,
+                       converged=converged)
 
 
 def _pow2(n: int) -> int:

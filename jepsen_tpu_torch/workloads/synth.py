@@ -341,7 +341,7 @@ def packed_la_history(n_txns: int, n_keys: int, concurrency: int = 10,
     # val id -> (key, value) ; value == global append id
     val_keys = np.empty(n_app, dtype=np.int64)
     val_keys[mop_val[app_idx]] = app_keys
-    val_names = [(int(val_keys[v]), int(v)) for v in range(n_app)]
+    val_names = list(zip(val_keys.tolist(), range(n_app)))
 
     return PackedTxns(
         txn_type=np.full(T, TXN_OK, dtype=np.int8),
@@ -414,7 +414,7 @@ def packed_rw_history(n_txns: int, n_keys: int, concurrency: int = 10,
     app_keys = mop_key[app_idx]
     val_keys = np.empty(n_app, dtype=np.int64)
     val_keys[mop_val[app_idx]] = app_keys
-    val_names = [(int(val_keys[v]), int(v)) for v in range(n_app)]
+    val_names = list(zip(val_keys.tolist(), range(n_app)))
 
     return PackedTxns(
         txn_type=np.full(T, TXN_OK, dtype=np.int8),

@@ -9,6 +9,8 @@ failed writer, stale reads, injected cycles, a row that overflows the
 sweep's budget and takes the exact rerun), pow2 size buckets and a
 history whose layout fact `txn_major` is False.  Checkpoints pass between
 the two packages in both directions with no history checked again.
+The `mixed` and `overflow` batches, the overflowed row's rerun and the
+checkpoint digests run in files of their own (`test_torch_batch_*.py`).
 """
 
 import dataclasses
@@ -143,20 +145,6 @@ def check_batch_case(name):
 @pytest.mark.parametrize("name", ["valid", "sizes"])
 def test_check_batch_equal_to_jax_and_to_each_alone(name):
     check_batch_case(name)
-
-
-def test_overflow_row_takes_the_exact_rerun(monkeypatch):
-    ps = _port(BATCHES["overflow"]())
-    batch = tb.pad_batch(ps, device="cpu")
-    _, over = tb._batched_core(batch, batch.n_keys)
-    assert over.tolist()[0] == over.tolist()[2] == 0
-    assert over.tolist()[1] > 0
-    budgets = []
-    exact = tb.core_check_exact
-    monkeypatch.setattr(tb, "core_check_exact", lambda h, nk, max_k, **kw:
-                        budgets.append(max_k) or exact(h, nk, max_k, **kw))
-    tb.check_batch(ps, device="cpu")
-    assert budgets == [tdi.pow2_at_least(128 + over.tolist()[1], 128)]
 
 
 def test_shared_caps_change_the_branch_not_the_verdict():
@@ -333,17 +321,6 @@ def test_checkpoint_passes_between_the_packages(tmp_path, tmp_path_factory,
     assert seen == ([] if first else [3, 1] if writer == "jax" else [3, 3])
     if first:
         assert got == first and open(ck, "rb").read() == written
-
-
-def test_digests_equal_between_the_packages(tmp_path):
-    # the checkpoint's digest hashes the PackedTxns columns' bytes: the
-    # port's columns carry the JAX dtypes, so every digest agrees
-    ps_j = BATCHES["mixed"]()
-    ck_j, ck_t = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
-    jb.check_batch_checkpointed(ps_j, ck_j, group_size=5)
-    tb.check_batch_checkpointed(_port(ps_j), ck_t, group_size=5,
-                                device="cpu")
-    assert open(ck_t, "rb").read() == open(ck_j, "rb").read()
 
 
 # -- the device guard ------------------------------------------------------

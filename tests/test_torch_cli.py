@@ -23,7 +23,7 @@ from jepsen_tpu import cli as jcli  # noqa: E402
 from jepsen_tpu.resilience import faults as jfaults  # noqa: E402
 from jepsen_tpu_torch import cli as tcli  # noqa: E402
 from jepsen_tpu_torch import store as tstore  # noqa: E402
-from jepsen_tpu_torch.__main__ import DEMOS, demo_checker  # noqa: E402
+from jepsen_tpu_torch.__main__ import DEMOS, demo_checker, suite  # noqa: E402
 from jepsen_tpu_torch.resilience import faults as tfaults  # noqa: E402
 from jepsen_tpu_torch.workloads import append as tappend  # noqa: E402
 from jepsen_tpu_torch.workloads import wr as twr  # noqa: E402
@@ -78,14 +78,13 @@ def test_subcommands_and_demo_checkers(tmp_path, capsys):
     rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "bank"])
     assert rc == 2 and "bank" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2
-    chk = demo_checker({"name": "demo-append", "cpu": True})
+    chk = demo_checker("demo-append", cpu=True)
     assert isinstance(chk, tappend.AppendChecker) and chk.device == "cpu"
-    chk = demo_checker({"name": "demo-wr", "cpu": False})
+    chk = demo_checker("demo-wr")
     assert isinstance(chk, twr.WrChecker) and chk.device is None
     with pytest.raises(ValueError, match="demo-append"):
-        demo_checker({"name": "other"})
-    rc = tcli.run(tcli.test_all_cmd(DEMOS, checker_fn=demo_checker),
-                  ["analyze", str(tmp_path / "missing")])
+        demo_checker("other")
+    rc = tcli.run(suite(), ["analyze", str(tmp_path / "missing")])
     assert rc == 2
 
 

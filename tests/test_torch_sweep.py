@@ -109,7 +109,7 @@ def test_sweep_truncated_by_max_rounds_is_not_converged():
     arrays = path_graph(20)
     args = [arrays[f] for f in FIELDS]
     has, wit, n_back, conv = jcs._sweep(21, 8, 3, *map(jnp.asarray, args))
-    t_has, t_wit, t_n_back, t_conv = tcs._sweep_arrays(
+    t_has, t_wit, t_n_back, t_conv = tcs._sweep_window(
         21, 8, 3, *map(torch.from_numpy, args))
     assert (t_has, t_n_back, t_conv) == (bool(has), int(n_back), bool(conv))
     assert not t_conv and not t_has
@@ -229,18 +229,15 @@ def test_detect_cycles_polls_before_every_grow_retry():
 
 @pytest.mark.parametrize("seed", range(12))
 def test_windowed_fixpoint_gives_the_full_fixpoints_witnesses(seed):
-    # `detect_cycles` reads its fixpoint on rank windows; run to
-    # convergence both ways, the witnesses are the same
+    # the port reads its fixpoint on rank windows; run to convergence,
+    # its witnesses are the JAX sweep's (the full fixpoint)
     n_nodes = 30 + 7 * seed
     arrays = random_graph(n_nodes, 2 * n_nodes, seed, n_chain=n_nodes // 3)
     args = [torch.from_numpy(arrays[f]) for f in FIELDS]
-    full = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args)
-    win = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args, windowed=True)
-    assert full[3] and win[3]
-    assert (win[0], win[2]) == (full[0], full[2])
-    assert win[1].tolist() == full[1].tolist()
+    win = tcs._sweep_window(n_nodes, 128, n_nodes + 1, *args)
     jhas, jwit, jn, jconv = jcs._sweep(n_nodes, 128, n_nodes + 1,
                                        *map(jnp.asarray, arrays.values()))
+    assert bool(jconv) and win[3]
     assert (win[0], win[2], win[1].tolist()) == \
         (bool(jhas), int(jn), np.asarray(jwit).tolist())
 
@@ -272,15 +269,19 @@ def test_windowed_fixpoint_on_local_backward_edges(seed):
     n_nodes = 600
     arrays = local_graph(n_nodes, seed)
     args = [torch.from_numpy(arrays[f]) for f in FIELDS]
-    full = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args)
-    win = tcs._sweep_arrays(n_nodes, 128, n_nodes + 1, *args, windowed=True)
-    assert full[3] and win[3] and full[0]
-    assert 0 < int(full[1].sum()) < full[2]     # some edges on no cycle
-    assert (win[0], win[2], win[1].tolist()) == \
-        (full[0], full[2], full[1].tolist())
-    # the windows are short: a few rounds give the same witnesses
-    few = tcs._sweep_arrays(n_nodes, 128, 16, *args, windowed=True)
-    assert few[3] and few[1].tolist() == full[1].tolist()
+    jhas, jwit, jn, jconv = jcs._sweep(
+        n_nodes, 128, n_nodes + 1, *[jnp.asarray(arrays[f]) for f in FIELDS])
+    full = (bool(jhas), np.asarray(jwit).tolist(), int(jn))
+    win = tcs._sweep_window(n_nodes, 128, n_nodes + 1, *args)
+    assert bool(jconv) and win[3] and full[0]
+    assert 0 < sum(full[1]) < full[2]           # some edges on no cycle
+    assert (win[0], win[1].tolist(), win[2]) == full
+    # the windows are short: a few rounds give the same witnesses, where
+    # the JAX sweep needs more
+    few = tcs._sweep_window(n_nodes, 128, 16, *args)
+    assert few[3] and few[1].tolist() == full[1]
+    assert not bool(jcs._sweep(n_nodes, 128, 16, *[
+        jnp.asarray(arrays[f]) for f in FIELDS])[3])
 
 
 def test_detect_cycles_converges_past_the_round_cap():
@@ -306,3 +307,56 @@ def test_detect_cycles_converges_past_the_round_cap():
     has, wit, n_back, conv = jcs._sweep(length + 1, 8, 4 * length, *args)
     assert bool(conv) and bool(has) and int(n_back) == 2
     assert np.asarray(wit).tolist()[:2] == [1, 1]
+
+
+def _on_a_cycle(n_nodes, arrays):
+    """The plain reference: positions of the backward edges that lie on
+    a cycle, those whose ends share a strongly connected component of
+    the whole graph (chain edges included)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    m = arrays["nc_mask"]
+    src, dst = arrays["nc_src"][m], arrays["nc_dst"][m]
+    cn, cs, cm = (arrays["chain_nodes"], arrays["chain_starts"],
+                  arrays["chain_mask"])
+    live = np.nonzero(cm)[0]
+    # a chain segment runs from one start to the next; the masked-out
+    # entries drop out of it
+    seg = np.cumsum(cs) - 1
+    links = [(cn[a], cn[b]) for a, b in zip(live[:-1], live[1:])
+             if seg[a] == seg[b]]
+    s_all = np.concatenate([src, [a for a, _ in links]]).astype(np.int64)
+    d_all = np.concatenate([dst, [b for _, b in links]]).astype(np.int64)
+    g = coo_matrix((np.ones(len(s_all)), (s_all, d_all)),
+                   shape=(n_nodes, n_nodes))
+    _, label = connected_components(g, directed=True, connection="strong")
+    rank = arrays["rank"]
+    pos = np.nonzero(arrays["nc_mask"] & (rank[arrays["nc_src"]]
+                                          >= rank[arrays["nc_dst"]]))[0]
+    s, d = arrays["nc_src"][pos], arrays["nc_dst"][pos]
+    return pos[(label[s] == label[d])]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_detect_cycles_sweeps_components_past_the_k_cap(seed, monkeypatch):
+    # past MAX_K_CAP backward edges (lowered to 64 here) the port sweeps
+    # the components of their rank intervals in batches: every backward
+    # edge on a cycle is found, as the JAX sweep finds them under its
+    # own cap and the strongly connected components say
+    n_nodes = 2000
+    arrays = local_graph(n_nodes, seed, n_back=300, max_drop=4)
+    gj, gt = graphs(n_nodes, arrays)
+    monkeypatch.setattr(tcs, "MAX_K_CAP", 64)
+    got = tcs.detect_cycles(gt, device="cpu")
+    want = jcs.detect_cycles(gj)
+    assert got.n_backward == 300 and got.converged and want.converged
+    assert got.has_cycle == want.has_cycle is True
+    assert sorted(got.witness_edge_ids) == sorted(want.witness_edge_ids)
+    assert list(got.witness_edge_ids) == list(_on_a_cycle(n_nodes, arrays))
+    # one component larger than the cap still leaves it inexact
+    monkeypatch.setattr(tcs, "MAX_K_CAP", 8)
+    wide = local_graph(200, seed, n_back=300, max_drop=6)
+    _, gw = graphs(200, wide)
+    res = tcs.detect_cycles(gw, device="cpu")
+    assert res.n_backward > 8 and not res.converged
