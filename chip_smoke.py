@@ -32,7 +32,7 @@ Phases, each asserting; any failure exits non-zero:
         forward-fill and no segmented-OR launches per call, and its time
         beside phase 3's `core_check`;
      b. the stale-read corpus of phase 4 under strong snapshot isolation
-        at 65,536 txns: a G-single-family anomaly with explained cycles,
+        at 16,384 txns: a G-single-family anomaly with explained cycles,
         segmented-OR launches, and the check's time split into pad, infer,
         sweeps and host classification (witness BFS, cycle search,
         rendering);
@@ -205,22 +205,45 @@ Phases, each asserting; any failure exits non-zero:
      e. one child process, `python -X importtime -m jepsen_tpu_torch
         test-all --only append --ops 2000` with no `--cpu`: exit 0,
         `results.json` valid, and neither `jax` nor `jepsen_tpu` among
-        its imports.
+        its imports;
+ 15. the JAX package's other nine demos as Jepsen tests on the card,
+     through the same suite, each at its `_wl` defaults, into a store
+     under `build/`:
+     a. `test-all --only <demo> -n n1 ... -n n5 --ops 20000 -c 10n`
+        (50 workers) for bank, long-fork, set, queue, causal, write-skew
+        and session, `-c 2n` (10 workers) for kafka, and `-c 2n --ops
+        1000` for lin-register (BASELINE config 1's size): exit 0 and
+        valid? true, the rule of each demo's tests in the JAX package;
+        each run's workload time and rate, `save_0`, the check and its
+        parts on the card (each family's `with_fallback` call, the
+        `detect_cycles` sweeps, Knossos's device leg, which races the
+        host legs), LOCF and seg-OR launches (session: at least 2) and
+        peak device memory; `analyze` of the bank run, the same dict;
+     b. `inject_long_fork` in 15a's long-fork run, saved with
+        `store.save_0`, then `analyze`: exit 1, valid? false, a long
+        fork whose cycle the sweep on the card found; a queue run
+        with `queue-adversary` `{"lose-enqueue-p": 0.001}` and a kafka
+        run whose test map's `"faults"` plan names `client.dup-send`:
+        exit 1, valid? false, `queue-lost` and `duplicate`;
+     c. card == CPU: every run of 15a-15b decoded from the store and
+        checked by `__main__.demo_checker(name, cpu=True)` in a worker
+        (`Twins`), the same dict (lin-register's without `algorithm`,
+        the race's winner).
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
 call of phase 12, each `check_stored` of 13a-13c and each `cli.run` of
-14a-14d, and read just after each (phase 12: after the resumed call);
-the kernels' `launches` are their sum (phases 8 and 10 assert that they
-launch neither).  The command's total time,
+14a-14d and 15a-15b, and read just after each (phase 12: after the
+resumed call); the kernels' `launches` are their sum (phases 8 and 10
+assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b and 14c and, from the end of phase 6 on, make the seeded histories
-of phases 9-13, which those phases read back from files; the
-comparisons of 6c, 7d and 12c, and their lines, come after phase 14,
+14b, 14c and 15c and, from the end of phase 6 on, make the seeded
+histories of phases 9-13, which those phases read back from files; the
+comparisons of 6c, 7d and 12c, and their lines, come after phase 15,
 and the workers are stopped before the script exits.
 
 Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
@@ -247,6 +270,10 @@ N_TXNS = 1_000_000          # the bench ladder's top rung (bench.py)
 N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
+#: 6b-6c: the stale-read check through the API, cut from 65,536 txns to
+#: keep the script inside its time limit with phase 15 (at 65,536 the
+#: host's `find_cycle` took 80 of 6b's 86 s)
+N_API_STALE = 16_384
 G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
 #: the stale-read checks' model: it proscribes the G-single family and not
 #: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
@@ -334,6 +361,28 @@ RUN_OPS = 100_000            # 14a: append txns (200,000 history ops)
 RUN_WR_OPS = 50_000          # 14d
 RUN_TIME_LIMIT = 120
 RUN_CHILD_OPS = 2_000        # 14e
+
+#: 15a: the JAX package's other nine demos through the same suite, each
+#: at its `_wl` defaults: (demo, -c, --ops).  lin-register at BASELINE
+#: config 1's 1,000 ops from 10 workers, kafka at 10a's 10 clients.
+#: causal first: its check, and its CPU twin in a worker, are the
+#: longest (the host session walker), so the twin runs beside the rest
+DEMO_RUNS = (
+    ("causal", "10n", 20_000), ("lin-register", "2n", 1_000),
+    ("bank", "10n", 20_000), ("long-fork", "10n", 20_000),
+    ("set", "10n", 20_000), ("queue", "10n", 20_000),
+    ("kafka", "2n", 20_000), ("write-skew", "10n", 20_000),
+    ("session", "10n", 20_000),
+)
+#: 15b: (demo, -c, --ops, test-map keys the run adds, the anomaly they
+#: must show)
+DEMO_INJECTED = (
+    ("queue", "10n", 20_000,
+     {"queue-adversary": {"lose-enqueue-p": 0.001}}, "queue-lost"),
+    ("kafka", "2n", 20_000,
+     {"faults": {"seed": 0, "p": 0.002, "sites": ["client.dup-send"]}},
+     "duplicate"),
+)
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -547,14 +596,15 @@ def made(twins, key):
 class Twins:
     """Work that needs no card, run in a pool of spawned worker processes
     beside the card's phases: the seeded histories of phases 9-13, made
-    while phases 7-8 run, and the CPU twins of 6c, 7d, 12c, 14b and 14c.
+    while phases 7-8 run, and the CPU twins of 6c, 7d, 12c, 14b, 14c and
+    15c.
     A job's inputs go to the worker pickled, or it makes them from their
     seeds with this script's own generators.  Its result comes back
     through a file under `build/`, read where `get` asks for it, so that
     no result is unpickled in this process while a phase is timed.
     `later` keeps a comparison whose twin is still running, `finish`
     makes every kept comparison (their lines are logged there, after
-    phase 14) and `close` stops the workers and removes the files."""
+    phase 15) and `close` stops the workers and removes the files."""
 
     def __init__(self, n: int):
         import multiprocessing as mp
@@ -664,6 +714,29 @@ def append_cpu(run_dir: str, viz: dict | None = None):
         with open(f, "rb") as fh:
             svgs.append((os.path.basename(f), fh.read()))
     return r, svgs
+
+
+def demo_cpu(run_dir: str):
+    """15c's twin: the stored demo run at `run_dir`, decoded here as
+    `analyze` decodes it, through `check_safe` of the demo's checker on
+    the CPU (`__main__.demo_checker(name, cpu=True)`)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.__main__ import demo_checker
+    from jepsen_tpu_torch.checkers import api as checker_api
+
+    test = store.load(run_dir)
+    h = test["history"] = test["history"].materialize()
+    return checker_api.check_safe(demo_checker(test["name"], cpu=True),
+                                  test, h)
+
+
+def race_free(demo: str, r: dict) -> dict:
+    """A lin-register dict without ``algorithm``, the Knossos race's
+    winner, which is whichever leg answered first; any other dict as it
+    is."""
+    if demo != "lin-register":
+        return r
+    return {k: v for k, v in r.items() if k != "algorithm"}
 
 
 def batch_cpu(ps):
@@ -1029,6 +1102,9 @@ def main(argv=None) -> int:
     # ---- 14. a Jepsen test run on the card --------------------------------
     check_run(dev, launches, twins)
 
+    # ---- 15. the other nine demos as Jepsen tests on the card -------------
+    check_demos(dev, launches, twins)
+
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
 
@@ -1092,7 +1168,8 @@ def check_api(p, best: float, launches: dict, twins: Twins) -> None:
         f"{N_TXNS / best6:.1f} ops/s; core_check (phase 3) best {best:.4f} "
         f"s, so the checker adds {best6 - best:.4f} s")
 
-    ps6 = stale_reads(packed_la_history(N_SMALL, n_keys=N_SMALL // 8, seed=0))
+    ps6 = stale_reads(packed_la_history(N_API_STALE,
+                                        n_keys=N_API_STALE // 8, seed=0))
     twins.submit("6c", la_cpu, ps6, STALE_MODELS)
     r, t, n = counted_check(ps6, STALE_MODELS)
     assert r["valid?"] is False, r["anomaly-types"]
@@ -1100,7 +1177,7 @@ def check_api(p, best: float, launches: dict, twins: Twins) -> None:
     assert family, r["anomaly-types"]
     n_cycles = explained_cycles(r)
     assert n["locf"] == LOCF_PER_CHECK and n["seg_or"] > 0, n
-    log(f"[6b] stale reads, {N_SMALL} txns, {'+'.join(STALE_MODELS)}: "
+    log(f"[6b] stale reads, {N_API_STALE} txns, {'+'.join(STALE_MODELS)}: "
         f"check {t:.4f} s ({split}); {split.calls['sweeps']} "
         f"projections; {family}; {n_cycles} cycles, every edge "
         f"explained; launches {n}")
@@ -1110,7 +1187,7 @@ def check_api(p, best: float, launches: dict, twins: Twins) -> None:
     def compare_6c(want, t_cpu, r=r):
         # 6c: 6b's check on the card against the same check on the CPU
         assert r == want, (r, want)
-        log(f"[6c] {N_SMALL} txns with stale reads: the result dicts are "
+        log(f"[6c] {N_API_STALE} txns with stale reads: the result dicts are "
             f"equal on card and CPU ({r['anomaly-types']}, "
             f"{explained_cycles(r)} rendered cycles, not {r['not']}, "
             f"also-not {r['also-not']}); the CPU check took {t_cpu:.4f} s "
@@ -2467,6 +2544,173 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
     log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
+def check_demos(dev: torch.device, launches: dict, twins: Twins) -> None:
+    """Phase 15: the JAX package's other nine demos run as Jepsen tests on
+    the card (see the module docstring), through `python -m
+    jepsen_tpu_torch`'s suite in process, as phase 14 runs `append`.  The
+    counters are set to 0 just before each `cli.run` of 15a-15b and read
+    just after; the sums go into the main path's `launches`.  The CPU
+    twins of 15c decode each stored run and check it in `twins`."""
+    import shutil
+    import threading
+
+    from jepsen_tpu_torch import cli, resilience, store
+    from jepsen_tpu_torch.__main__ import DEMOS
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.checkers.knossos import device_wgl
+    from jepsen_tpu_torch.generator import interpreter
+    from jepsen_tpu_torch.history.ops import History
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+    from jepsen_tpu_torch.store.format import LazyHistory
+
+    t15 = time.perf_counter()
+    base = os.path.join(HERE, "build", "chip_smoke_demos")
+    shutil.rmtree(base, ignore_errors=True)
+    nodes = [a for n in RUN_NODES for a in ("-n", n)]
+    # a run's stages, and the check's parts on the card: each family's
+    # guarded device call (`with_fallback`: bank, the fork products,
+    # the session masks, the queue and kafka passes), the cycle sweeps
+    # (`detect_cycles`: predicate, causal) and Knossos's device leg,
+    # which races the host legs on a thread of its own
+    stages = (("workload", interpreter, "run"), ("save_0", store, "save_0"),
+              ("check", checker_api, "check_safe"),
+              ("save_1", store, "save_1"),
+              ("decode", LazyHistory, "materialize"),
+              ("device part", resilience, "with_fallback"),
+              ("sweeps", cycle_sweep, "detect_cycles"),
+              ("device leg", device_wgl, "check"))
+
+    def counted(parser_dispatch, store_dir, argv):
+        """`cli.run(parser_dispatch, argv)` with the counters set to 0
+        just before it and read just after; returns (exit code, Split,
+        launches, peak device memory, the history the run made, if it
+        made one)."""
+        split = Split(stages)
+        keep = Split((("history", interpreter, "run"),), keep=True)
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with split, keep:
+            rc = cli.run(parser_dispatch, ["--store-dir", store_dir, *argv])
+            # a race's losers unwind on their threads after the verdict
+            for t in threading.enumerate():
+                if t.name.startswith("knossos-race-"):
+                    t.join(timeout=60)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return (rc, split, n, torch.cuda.max_memory_allocated(),
+                keep.kept["history"][-1][1] if keep.kept["history"] else None)
+
+    def run_line(tag, name, conc, ops, rc, sp, n, peak, h, r):
+        n_txns = sum(op.type == "invoke" for op in h)
+        card = ", ".join(f"{k} {sp.s[k]:.4f} s ({sp.calls[k]} calls)"
+                         for k in ("device part", "sweeps", "device leg")
+                         if sp.calls[k])
+        anomalies = f" {r['anomaly-types']}" if r.get("anomaly-types") \
+            else ""
+        won = f", won by {r['algorithm']}" if "algorithm" in r else ""
+        log(f"[{tag}] test-all --only {name} -c {conc} --ops {ops}: "
+            f"{len(h)} ops ({n_txns} invoked, "
+            f"{sum(op.type == 'info' for op in h)} info) in "
+            f"{sp.s['workload']:.2f} s ({n_txns / sp.s['workload']:.1f} "
+            f"ops/s); save_0 {sp.s['save_0']:.2f} s; check "
+            f"{sp.s['check']:.4f} s, on the card: {card or 'nothing'}; "
+            f"save_1 {sp.s['save_1']:.2f} s; exit {rc}, valid? "
+            f"{r['valid?']}{anomalies}{won}; launches {n}; "
+            f"max_memory_allocated {peak} B")
+
+    runs = []
+    try:
+        # ---- 15a. each demo, valid ----------------------------------------
+        suite = demo_suite()
+        for name, conc, ops in DEMO_RUNS:
+            rc, sp, n, peak, h = counted(suite, base, [
+                "test-all", "--only", name, *nodes, "-c", conc,
+                "--ops", str(ops), "--time-limit", str(RUN_TIME_LIMIT)])
+            d = store.latest(f"demo-{name}", base=base)
+            r = store.load(d)["results"]
+            twins.submit(("15", d), demo_cpu, d)
+            runs.append((name, d, r))
+            run_line("15a", name, conc, ops, rc, sp, n, peak, h, r)
+            # every demo's rule in the JAX package's tests is valid? true
+            # for a clean run (tests/test_workloads.py, test_kafka.py,
+            # test_cli_web.py, test_invariants.py)
+            assert rc == 0 and r["valid?"] is True, (name, rc, r)
+            if name == "session":
+                assert n["locf"] >= 2, n
+            if name == "long-fork":
+                d_lf = d
+            if name == "bank":
+                # analyze on the card reads the stored accounts and total
+                rc2, sp2, n2, _, _ = counted(suite, base, ["analyze", d])
+                assert rc2 == 0 and store.load(d)["results"] == r
+                log(f"[15a] analyze {os.path.basename(d)} (bank): decode "
+                    f"{sp2.s['decode']:.2f} s, check {sp2.s['check']:.4f} s, "
+                    f"the dict equal; launches {n2}")
+        # ---- 15b. injected --------------------------------------------------
+        # a long fork in 15a's long-fork run, saved and analysed: the
+        # sweep on the card finds its cycle.  The predicate's sweeps are
+        # over host-built edges with no chain rows, so they launch no
+        # seg-OR: its chain pass is empty
+        inj = os.path.join(base, "injected")
+        t0 = time.perf_counter()
+        h = store.load(d_lf)["history"].materialize()
+        h = inject_long_fork(History(
+            [op.with_(value=[list(m) for m in op.value])
+             if op.f == "txn" and op.value else op for op in h.ops],
+            reindex=False))
+        tc = {"name": "demo-long-fork", "store-dir": inj,
+              "start-time": time.time(), "history": h}
+        store.save_0(tc)
+        dc = store.test_dir(tc)
+        t_inject = time.perf_counter() - t0
+        rc, sp, n, peak, _ = counted(demo_suite(), inj, ["analyze", dc])
+        r = store.load(dc)["results"]
+        twins.submit(("15", dc), demo_cpu, dc)
+        runs.append(("long-fork", dc, r))
+        log(f"[15b] inject_long_fork into {os.path.basename(d_lf)}, saved "
+            f"({t_inject:.2f} s), analyze: decode {sp.s['decode']:.2f} s, "
+            f"check {sp.s['check']:.4f} s, on the card: device part "
+            f"{sp.s['device part']:.4f} s, sweeps {sp.s['sweeps']:.4f} s "
+            f"({sp.calls['sweeps']} calls); exit {rc}, valid? "
+            f"{r['valid?']} {r['anomaly-types']}, {r.get('fork-count')} "
+            f"forks; launches {n}; max_memory_allocated {peak} B")
+        assert rc == 1 and r["valid?"] is False, (rc, r)
+        assert r["long-forks"] and sp.calls["sweeps"] > 0, (sp.calls, r)
+        for name, conc, ops, extra, anomaly in DEMO_INJECTED:
+            def test_fn(opts, name=name, extra=extra):
+                return DEMOS[name]({**opts, **extra})
+
+            rc, sp, n, peak, h = counted(
+                cli.test_all_cmd({name: test_fn}), inj, [
+                    "test-all", "--only", name, *nodes, "-c", conc,
+                    "--ops", str(ops), "--time-limit", str(RUN_TIME_LIMIT)])
+            d = store.latest(f"demo-{name}", base=inj)
+            r = store.load(d)["results"]
+            twins.submit(("15", d), demo_cpu, d)
+            runs.append((name, d, r))
+            log(f"[15b] {json.dumps(extra)}:")
+            run_line("15b", name, conc, ops, rc, sp, n, peak, h, r)
+            assert rc == 1 and r["valid?"] is False, (name, rc, r)
+            assert anomaly in r["anomaly-types"], (anomaly, r)
+        # ---- 15c. card == CPU ----------------------------------------------
+        for name, d, r in runs:
+            r_cpu, t_cpu, t_wait = twins.get(("15", d))
+            assert race_free(name, r_cpu) == race_free(name, r), \
+                (name, r_cpu, r)
+            but = " but for the race's winner" \
+                if name == "lin-register" else ""
+            log(f"[15c] {name} ({os.path.basename(d)}): demo_checker(cpu="
+                f"True) on the stored run in a worker, decode included: "
+                f"{t_cpu:.4f} s, the dict equal{but} (waited "
+                f"{t_wait:.2f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
+
+
 def compaction(device_wgl, search) -> None:
     """JAX's compaction as written, `.at[tgt].max(arange)` as one
     `scatter_reduce_` onto F + 1 rows with every dropped child aimed at
@@ -2538,6 +2782,11 @@ class Split:
         return self
 
     def _timed(self, stage, fn):
+        import functools
+
+        # wraps: a caller that reads the timed function's signature
+        # (the Knossos race filters each leg's keywords by it) sees fn's
+        @functools.wraps(fn)
         def run(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -4,15 +4,14 @@
 Ships a self-contained demo suite over the in-process sim cluster (so the
 zero-to-aha path needs no real nodes), plus `analyze` (SURVEY.md §2.1 L7).
 A real db suite builds its own CLI with
-`jepsen_tpu_torch.cli.single_test_cmd`.  The JAX module's
-``"client-latency"`` option, which only its campaign specs set, waits
-for the port's campaigns.
+`jepsen_tpu_torch.cli.single_test_cmd`.
 
-The demos are the two Elle workloads, ``append`` and ``wr``.  Their
-checkers run on the CUDA card, or on the CPU under ``--cpu``.  The JAX
-package's other nine demos wait for their workloads (ROADMAP A).
-`analyze DIR` re-checks a stored demo run with the checker of the demo
-its stored name names (`suite`).
+The demos are the JAX package's eleven: ``append``, ``wr``,
+``lin-register``, ``bank``, ``long-fork``, ``set``, ``queue``, ``kafka``,
+``causal``, ``write-skew`` and ``session``.  Their checkers run on the
+CUDA card, or on the CPU under ``--cpu``.  `analyze DIR` re-checks a
+stored demo run with the checker of the demo its stored name names
+(`suite`).
 """
 
 from __future__ import annotations
@@ -26,16 +25,75 @@ from .generator import core as g
 
 
 def _wl(name: str, opts: Dict[str, Any]):
-    from .workloads import append, wr
-    from .workloads.mem import MemClient
+    from .workloads import (append, bank, causal, linearizable_register,
+                            long_fork, queue, session, sets, wr,
+                            write_skew)
+    from .workloads.mem import MemClient, MemStore
 
     rng = random.Random(opts.get("seed"))
     device = "cpu" if opts.get("cpu") else None
+    # per-op client latency (seconds): campaign specs use it to pace
+    # the unbounded in-memory cluster so nemesis windows actually
+    # overlap a bounded op count
+    lat = float(opts.get("client-latency") or 0.0)
     if name == "append":
-        return append.workload(rng=rng, device=device), MemClient()
+        return (append.workload(rng=rng, device=device),
+                MemClient(latency=lat))
     if name == "wr":
         return (wr.workload(rng=rng, device=device),
-                MemClient(txn_kind="rw-register"))
+                MemClient(txn_kind="rw-register", latency=lat))
+    if name == "lin-register":
+        return (linearizable_register.workload(rng=rng, device=device),
+                MemClient(latency=lat))
+    if name == "bank":
+        wl = bank.workload(rng=rng, device=device)
+        s = MemStore()
+        s.accounts = dict(wl["accounts"])
+        return wl, MemClient(s, latency=lat)
+    if name == "long-fork":
+        return (long_fork.workload(rng=rng, device=device),
+                MemClient(txn_kind="rw-register", latency=lat))
+    if name == "set":
+        return sets.workload(rng=rng), MemClient(latency=lat)
+    if name == "queue":
+        adv = opts.get("queue-adversary") or {}
+        return (queue.workload(rng=rng, fifo=bool(adv.get("fifo")),
+                               device=device),
+                MemClient(
+                    latency=lat, rng=random.Random(opts.get("seed")),
+                    dup_enqueue_p=float(adv.get("dup-enqueue-p") or 0.0),
+                    lose_enqueue_p=float(adv.get("lose-enqueue-p") or 0.0),
+                    reorder_dequeue_p=float(
+                        adv.get("reorder-dequeue-p") or 0.0)))
+    if name == "kafka":
+        from .workloads import kafka as kafka_wl
+
+        adv = opts.get("queue-adversary") or {}
+        store = kafka_wl.KafkaStore()
+        store.freeze_commits = bool(adv.get("freeze-commits"))
+        client = kafka_wl.KafkaClient(
+            store, rng=random.Random(opts.get("seed")),
+            lose_tail_p=float(adv.get("lose-tail-p") or 0.0),
+            dup_p=float(adv.get("dup-p") or 0.0),
+            dup_send_p=float(adv.get("dup-send-p") or 0.0),
+            reorder_p=float(adv.get("reorder-p") or 0.0),
+            zombie_p=float(adv.get("zombie-p") or 0.0),
+            torn_p=float(adv.get("torn-p") or 0.0))
+        return (kafka_wl.workload(
+            key_count=int(opts.get("kafka-key-count") or 4),
+            subscribe_frac=float(opts.get("kafka-subscribe-frac", 0.2)),
+            txn_frac=float(opts.get("kafka-txn-frac", 0.3)),
+            crash_frac=float(opts.get("kafka-crash-frac", 0.05)),
+            rng=rng, device=device), client)
+    if name == "causal":
+        return (causal.workload(rng=rng, device=device),
+                MemClient(txn_kind="rw-register", latency=lat))
+    if name == "write-skew":
+        return (write_skew.workload(rng=rng, device=device),
+                MemClient(txn_kind="rw-register", latency=lat))
+    if name == "session":
+        return (session.workload(rng=rng, device=device),
+                MemClient(txn_kind="rw-register", latency=lat))
     raise ValueError(f"unknown workload {name!r}")
 
 
@@ -66,7 +124,9 @@ def _demo_test(name: str):
     return test_fn
 
 
-DEMOS = {n: _demo_test(n) for n in ("append", "wr")}
+DEMOS = {n: _demo_test(n) for n in
+         ("append", "wr", "lin-register", "bank", "long-fork", "set",
+          "queue", "kafka", "causal", "write-skew", "session")}
 
 
 def demo_checker(name: str, cpu: bool = False):

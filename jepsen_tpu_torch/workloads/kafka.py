@@ -1,5 +1,5 @@
-"""Kafka-style partitioned-log workload (the port's copy of the host
-parts of `jepsen_tpu/workloads/kafka.py`).
+"""Kafka-style partitioned-log workload (the port's copy of
+`jepsen_tpu/workloads/kafka.py`).
 
 Equivalent of the reference's `jepsen/src/jepsen/tests/kafka.clj`
 (SURVEY.md §2.6): clients send uniquely-valued messages to partitioned
@@ -45,16 +45,11 @@ The checker covers the reference's anomaly taxonomy:
   reported but not by itself invalid, matching the reference's
   treatment when final polls may simply not have caught up).
 
-Ported: the generator (`_KafkaGen`, `gen`), the simulated broker
-(`KafkaStore`) and client (`KafkaClient`, with every probability knob),
-the one-pass fact extraction the packed checker shares (`_observations`)
-and the scan twin (`KafkaChecker`).  With the same seeds and knobs the
-simulator writes the same history as the JAX one.  Left out: the
-`FaultPlan` branch of `KafkaClient._adversary` and its ``client.*``
-sites (they wait for the kafka demo of the port's CLI), so only the
-probability knobs fire; the telemetry counter of each
-injection; and `final_gen` / `workload()`, which need the generator
-framework.
+With the same seeds, knobs and fault plan the simulator writes the same
+history as the JAX one.  `workload` checks with `PackedKafkaChecker` on
+`device` (the CUDA card unless the caller names the CPU).  Left out: the
+telemetry counter of each adversarial injection (the port has no
+telemetry yet).
 """
 
 from __future__ import annotations
@@ -64,6 +59,7 @@ import random
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from jepsen_tpu_torch.backend import DeviceLike
 from jepsen_tpu_torch.checkers import api as checker_api
 from jepsen_tpu_torch.client import Client
 from jepsen_tpu_torch.history.ops import INFO, INVOKE, OK
@@ -73,6 +69,17 @@ from jepsen_tpu_torch.history.ops import INFO, INVOKE, OK
 #: `checkers.queue.kafka.STALE_MIN_POLLS` by tests so the scan twin and
 #: the packed passes can't drift)
 STALE_MIN_POLLS = 3
+
+#: seeded adversarial-client FaultPlan sites (strictly opt-in: a plan
+#: must name the site for the client to even consult it).  Caller index
+#: is ``member * _FAULT_STRIDE + op-ordinal``, the interpreter idiom.
+SITE_DUP = "client.dup-send"
+SITE_REORDER = "client.reorder-send"
+SITE_ZOMBIE = "client.zombie-resend"
+SITE_TORN = "client.torn-send"
+ADVERSARY_SITES = {SITE_DUP: "dup-send", SITE_REORDER: "reorder-send",
+                   SITE_ZOMBIE: "zombie-resend", SITE_TORN: "torn-send"}
+_FAULT_STRIDE = 1_000_003
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +136,21 @@ class _KafkaGen:
 
 def gen(**opts) -> Any:
     return _KafkaGen(**opts)
+
+
+def final_gen():
+    """Final phase: assign everything and poll until quiet (so the
+    checker can distinguish lost from merely-unread)."""
+    from jepsen_tpu_torch.generator import core as g
+
+    def assign_all(test, ctx):
+        keys = list(range(test.get("kafka-key-count", 4)))
+        return {"f": "assign", "value": keys}
+
+    # a bare fn generator is infinite — wrap in once()
+    return g.clients(g.each_thread(g.lift(
+        [g.once(assign_all)]
+        + [{"f": "poll", "value": [("poll", None)]}] * 16)))
 
 
 # ---------------------------------------------------------------------------
@@ -219,19 +241,20 @@ class KafkaClient(Client):
 
     Adversarial-client shapes — the behaviors real message
     systems break under, each producing an anomaly the matching packed
-    checker pass attributes.  Triggered by the probability knobs (seeded
-    corpora); the JAX client can also fire them from a seeded `FaultPlan`
-    naming ``client.*`` sites, which the port leaves out:
+    checker pass attributes.  Triggered EITHER by the probability knobs
+    (seeded corpora) or by a seeded `FaultPlan` naming the matching
+    ``client.*`` site (strictly opt-in, the interpreter idiom):
 
-    - `dup_send_p` — the duplicate-request retry: every send mop of the
-      op is applied twice (**duplicate**);
-    - `reorder_p` — the broker applies one op's sends in reverse arrival
-      order; completions still report each mop's true landing offset
-      (**int-send-skip** / **nonmonotonic-send**);
-    - `zombie_p` — a zombie retry re-appends the client's last ACKED
-      message after the fact, invisibly to its own history
-      (**duplicate** at a later offset);
-    - `torn_p` — a multi-key send is torn: only
+    - `dup_send_p` / ``client.dup-send`` — the duplicate-request retry:
+      every send mop of the op is applied twice (**duplicate**);
+    - `reorder_p` / ``client.reorder-send`` — the broker applies one
+      op's sends in reverse arrival order; completions still report
+      each mop's true landing offset (**int-send-skip** /
+      **nonmonotonic-send**);
+    - `zombie_p` / ``client.zombie-resend`` — a zombie retry re-appends
+      the client's last ACKED message after the fact, invisibly to its
+      own history (**duplicate** at a later offset);
+    - `torn_p` / ``client.torn-send`` — a multi-key send is torn: only
       the first key's sends reach the log, the rest are acked with
       fabricated offsets (**lost-write** / **inconsistent-offsets**).
     """
@@ -256,6 +279,7 @@ class KafkaClient(Client):
         self.assigned: List[Any] = []
         self.pos: Dict[Any, int] = {}
         self._acked: Optional[Tuple[Any, Any]] = None
+        self._op_n = 0
 
     def open(self, test, node):
         c = KafkaClient(self.store, poll_limit=self.poll_limit,
@@ -268,10 +292,27 @@ class KafkaClient(Client):
 
     # -- adversarial shapes --
 
-    def _adversary(self) -> set:
-        """Which adversarial shapes apply to THIS op: the probability
-        knobs, drawn in the JAX order."""
+    def _adversary(self, test) -> set:
+        """Which adversarial shapes apply to THIS op: seeded FaultPlan
+        sites (only consulted when the plan names them) plus the
+        probability knobs.  Caller-indexed so fuzz accounting stays
+        deterministic per (member, op-ordinal)."""
+        self._op_n += 1
         shapes = set()
+        plan = None
+        if isinstance(test, dict):
+            from jepsen_tpu_torch.resilience import faults as faults_mod
+
+            plan = faults_mod.plan_for(test)
+        if plan is not None:
+            idx = self.member * _FAULT_STRIDE + self._op_n
+            for site, shape in ADVERSARY_SITES.items():
+                if not plan.targets_site(site):
+                    continue
+                try:
+                    plan.fire_at(site, idx)
+                except faults_mod.FaultInjected:
+                    shapes.add(shape)
         for p, shape in ((self.dup_send_p, "dup-send"),
                          (self.reorder_p, "reorder-send"),
                          (self.zombie_p, "zombie-resend"),
@@ -355,7 +396,7 @@ class KafkaClient(Client):
         s = self.store
         with s.lock:
             if f == "send":
-                out = self._do_mops(op["value"], self._adversary())
+                out = self._do_mops(op["value"], self._adversary(test))
                 return dict(op, type="ok", value=out)
             if f == "poll":
                 done = dict(op, type="ok", value=[self._do_poll()])
@@ -366,7 +407,7 @@ class KafkaClient(Client):
                     done["rebalance"] = s.generation
                 return done
             if f == "txn":
-                out = self._do_mops(op["value"], self._adversary())
+                out = self._do_mops(op["value"], self._adversary(test))
                 done = dict(op, type="ok", value=out)
                 if self.mode == "subscribe":
                     done["rebalance"] = s.generation
@@ -630,3 +671,20 @@ class KafkaChecker(checker_api.Checker):
         if unseen:
             out["unseen"] = dict(sorted(unseen.items(), key=repr)[:16])
         return out
+
+
+def workload(*, key_count: int = 4, crash_frac: float = 0.0,
+             subscribe_frac: float = 0.0, txn_frac: float = 0.0,
+             rng: Optional[random.Random] = None,
+             device: DeviceLike = None) -> dict:
+    from jepsen_tpu_torch.checkers.queue.kafka import PackedKafkaChecker
+
+    return {
+        "generator": gen(key_count=key_count, crash_frac=crash_frac,
+                         subscribe_frac=subscribe_frac, txn_frac=txn_frac,
+                         rng=rng),
+        "final-generator": final_gen(),
+        "checker": PackedKafkaChecker(device=device),
+        "kafka-key-count": key_count,
+        "workload-kind": "kafka",
+    }

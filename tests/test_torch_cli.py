@@ -7,7 +7,8 @@ Tolerances: the parsed options, test maps, plans and every fire
 decision are equal to the JAX package's.  The port's test map lacks
 only the keys of the flags it does not offer (``--telemetry``,
 ``--profile-dir``).  `python -m jepsen_tpu_torch --cpu ... test-all`
-and `analyze DIR` exit 0 in a subprocess.
+and `analyze DIR` exit 0 in a subprocess; the same ``test-all`` runs
+the queue and kafka demos, whose stored runs `analyze` checks again.
 """
 
 import logging
@@ -75,8 +76,8 @@ def test_subcommands_and_demo_checkers(tmp_path, capsys):
     p, _ = tcli.test_all_cmd(DEMOS)
     sub = next(a for a in p._actions if a.dest == "cmd")
     assert sorted(sub.choices) == ["analyze", "test", "test-all"]
-    rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "bank"])
-    assert rc == 2 and "bank" in capsys.readouterr().err
+    rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "nope"])
+    assert rc == 2 and "nope" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2
     chk = demo_checker("demo-append", cpu=True)
     assert isinstance(chk, tappend.AppendChecker) and chk.device == "cpu"
@@ -104,12 +105,14 @@ def _main(*args, cwd):
                           timeout=300)
 
 
-def test_python_m_test_all_then_analyze_on_the_cpu(tmp_path):
+def test_python_m_test_all_then_analyze_on_the_cpu(tmp_path, capsys):
     base = str(tmp_path / "store")
     res = _main("--cpu", "--store-dir", base, "test-all", "--only", "append",
-                "--ops", "500", cwd=str(tmp_path))
+                "--only", "queue", "--only", "kafka", "--ops", "500",
+                cwd=str(tmp_path))
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "demo-append valid? = True" in res.stdout
+    for name in ("append", "queue", "kafka"):
+        assert f"demo-{name} valid? = True" in res.stdout
     d = tstore.latest("demo-append", base=base)
     stored = tstore.load(d)
     assert stored["results"]["valid?"] is True
@@ -118,6 +121,16 @@ def test_python_m_test_all_then_analyze_on_the_cpu(tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
     assert "re-analysis: valid? = True" in res.stdout
     assert tstore.load(d)["results"] == stored["results"]
+    # the queue and kafka runs of the same command, analysed in process
+    # by the suite `python -m jepsen_tpu_torch` runs
+    for name, checker in (("queue", "total-queue"), ("kafka", "kafka")):
+        d = tstore.latest(f"demo-{name}", base=base)
+        stored = tstore.load(d)
+        assert stored["results"]["valid?"] is True
+        assert demo_checker(stored["name"], cpu=True).name() == checker
+        assert tcli.run(suite(), ["--cpu", "analyze", d]) == 0
+        assert "re-analysis: valid? = True" in capsys.readouterr().out
+        assert tstore.load(d)["results"] == stored["results"]
 
 
 # -- fault plans -------------------------------------------------------------

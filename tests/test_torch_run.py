@@ -349,11 +349,17 @@ def test_no_card_records_unknown_and_the_cli_fails(tmp_path, monkeypatch,
     assert done["results"]["checker"] == "list-append"
     from jepsen_tpu_torch.__main__ import DEMOS
 
+    # an Elle demo, an invariants demo and a queue demo
+    only = ("wr", "bank", "queue")
+    base = str(tmp_path / "cli")
     rc = tcli.run(tcli.test_all_cmd(DEMOS),
-                  ["--store-dir", str(tmp_path / "cli"), "test-all",
-                   "--only", "wr", "--ops", "20"])
+                  ["--store-dir", base, "test-all",
+                   *(a for n in only for a in ("--only", n)), "--ops", "20"])
     assert rc == 1
-    assert "valid? = unknown" in capsys.readouterr().out
+    assert capsys.readouterr().out.count("valid? = unknown") == len(only)
+    for n in only:
+        r = tstore.load(tstore.latest(f"demo-{n}", base=base))["results"]
+        assert r["valid?"] == "unknown" and "NoDeviceError" in r["error"], r
     with pytest.raises(backend.NoDeviceError):
         backend.resolve(None)
 
