@@ -192,7 +192,8 @@ Phases, each asserting; any failure exits non-zero:
         --time-limit 120` (50 workers, 200,000 ops): exit 0, valid, no
         error, LOCF launches; the workload's time and rate, `save_0`, the
         check and its part on the card (infer and sweeps), the history's
-        size, launches and peak device memory;
+        size, launches and peak device memory; the backward edges of each
+        projection and of the largest component of their rank intervals;
      b. `analyze DIR` on 14a's run: the same dict, and the same stored
         history through `AppendChecker(device="cpu")` gives it too;
      c. 14a's history, as 14b decoded it, with one G1c injected by
@@ -229,24 +230,64 @@ Phases, each asserting; any failure exits non-zero:
         checked by `__main__.demo_checker(name, cpu=True)` in a worker
         (`Twins`), the same dict (lin-register's without `algorithm`,
         the race's winner).
+ 16. one component past MAX_K_CAP backward edges on the card, then the
+     first suites against real processes, each through its command line
+     in process (`cli.run(suite(), argv)`), into a store under `build/`:
+     a. `jitter_history(8,000)` (50 workers whose completions come back
+        out of apply order) through `list_append.check` under strict
+        serializability, valid and with `synth.inject_wr_cycle`: the
+        largest component past 8,192 edges, valid and then G1c; the
+        groups of components and their column batches, the check split
+        into pad, infer, sweeps, the groups' sweeps and their meta
+        closures, the launches and peak device memory; every
+        projection's witnesses against the backward edges whose ends
+        share a strongly connected component on the host (scipy);
+        `_closure_diagonal` of a random 4,096-node matrix against the
+        host's strongly connected components, and one closure step at
+        the component cap (98,304 edges) with its time and memory;
+        card == CPU at 1,000 txns with MAX_K_CAP lowered to 256 on both
+        sides (the CPU's in a worker), each equal to the card's dict at
+        the full cap;
+     b. (after 16c, whose CPU twins then run beside it) `python -m
+        jepsen_tpu_torch.dbs.sqlite test-all --only append` and `--only
+        wr`, `-c 10 --ops 20000`: exit 0 and valid; each
+        run's workload rate, `save_0`, the check and its part on the
+        card, launches (LOCF in the append check), the backward edges
+        and largest component of each projection, peak device memory;
+     c. the regd suite on three daemons over TCP, each run on ports
+        the OS reports free (`--base-port`): stale reads on
+        blocked backups under strict serializability, 120 ops, first
+        (its CPU twin is the phase's longest): exit 1, valid? false;
+        `python -m jepsen_tpu_torch.dbs.regd_suite test-all --only
+        append -n n1 -n n2 -n n3 --time-limit 30`: valid; the same run
+        with the primary killed and restarted between three phases of
+        3,300 ops: valid, with ok txns on both sides of the restart;
+        each line as 16b's, with the fail and info completions;
+     d. `perf()`, `html_timeline()` and `Stats` composed on 16c's
+        stored run: the size of `timeline.html` in the store and
+        whether the plots were made or skipped (no matplotlib);
+     and card == CPU: each stored run of 16b-16c checked by its
+     workload's checker on the CPU in a worker, the same dict.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
-call of phase 12, each `check_stored` of 13a-13c and each `cli.run` of
-14a-14d and 15a-15b, and read just after each (phase 12: after the
+call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
+14a-14d, 15a-15b and 16b-16c, and each full-size check of 16a, and
+read just after each (phase 12: after the
 resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b, 14c and 15c and, from the end of phase 6 on, make the seeded
+14b, 14c, 15c and 16 and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
-comparisons of 6c, 7d and 12c, and their lines, come after phase 15,
-and the workers are stopped before the script exits.
+comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
+after phase 16, and the workers are stopped before the script exits.
 
-Imports `torch`, `numpy` and the port; never `jax` or `jepsen_tpu`.
+Imports `torch`, `numpy`, scipy (16a's host reference) and the port; never
+`jax` or `jepsen_tpu`.
 """
 
 from __future__ import annotations
@@ -384,6 +425,31 @@ DEMO_INJECTED = (
      "duplicate"),
 )
 
+#: 16a: the reproducer of one component past MAX_K_CAP backward edges
+#: (`jitter_history`), at the full cap (8,000 txns: components of about
+#: 11,000 edges; at 20,000 each check took 40 s on an H100, more than
+#: half of it on the host), and its card == CPU
+#: comparison: on the CPU a check at the full cap takes tens of minutes
+#: (its 8,192-column planes and closures), so both sides run a smaller
+#: one with MAX_K_CAP lowered, which takes the same column-batch path
+C1_TXNS = 8_000
+C1_MODELS = ["strict-serializable"]
+C1_CMP_TXNS = 1_000
+C1_CMP_CAP = 256
+CLOSURE_CHECK = 4_096        # 16a: the closure against the host's SCCs
+#: 16b: the sqlite suite, 10 workers and 20,000 ops a workload
+DB_OPS = 20_000
+DB_CONC = "10"
+#: 16c: the regd suite on three daemons: a 30 s run under the suite's
+#: stagger(0.003), the primary crashed and restarted between three
+#: phases of as many ops, and `test_regd_stale_reads_caught`'s stale
+#: reads run at 120 ops (at its 250 the host classification of the
+#: invalid check took 40 s)
+REGD_NODES = ("n1", "n2", "n3")
+REGD_TIME_LIMIT = 30
+REGD_PHASE_OPS = 3_300
+REGD_STALE_OPS = 120
+
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
 TWIN_WORKERS = 3
@@ -462,6 +528,200 @@ def stale_reads_rw(p, n_reads: int = N_STALE, seed: int = 0,
     q = dataclasses.replace(p, mop_val=p.mop_val.copy())
     q.mop_val[pick] = -1
     return q
+
+
+def jitter_history(n_txns: int, n_keys: int = 10, concurrency: int = 50,
+                   max_mops: int = 4, read_prob: float = 0.5,
+                   max_delay: float = 100.0, max_writes_per_key: int = 32,
+                   kind: str = "list-append", seed: int = 0):
+    """A valid history whose completions come back out of apply order,
+    as a real database's do: `concurrency` processes each invoke a txn
+    when their last one completes (after a gap drawn from [0, 1)), the
+    store applies it at once, in invoke order, and its completion returns
+    after a seeded delay drawn from [0, `max_delay`).  Each txn's apply
+    point lies between its invoke and its completion, so the history is
+    strict serializable; but the sweep ranks txns by completion, so many
+    of its ww and wr edges run backward, and their rank intervals overlap
+    into components of thousands of edges.  As in the `append` workload,
+    `n_keys` keys are active at a time, and a key written
+    `max_writes_per_key` times is retired for a fresh one, so that reads
+    stay short.  `kind` is "list-append" (`append` and `r` of lists) or
+    "rw-register" (`w` of unique values and `r`).  A port `History`, the
+    same for the same arguments."""
+    import heapq
+
+    from jepsen_tpu_torch.history.ops import INVOKE, OK, History, Op
+
+    append = kind == "list-append"
+    rng = np.random.default_rng(seed)
+    active = list(range(n_keys))
+    db = {k: ([] if append else None) for k in active}
+    writes = dict.fromkeys(active, 0)
+    ops, events, started, next_val = [], [], 0, 1
+    for p in range(concurrency):
+        heapq.heappush(events, (float(rng.random()), p, None))
+    while events:
+        t, p, done = heapq.heappop(events)
+        if done is not None:
+            ops.append(Op(type=OK, process=p, f="txn", value=done,
+                          time=len(ops)))
+            heapq.heappush(events, (t + float(rng.random()), p, None))
+            continue
+        if started == n_txns:
+            continue
+        started += 1
+        mops = []
+        for _ in range(int(rng.integers(1, max_mops + 1))):
+            slot = int(rng.integers(0, n_keys))
+            k = active[slot]
+            if rng.random() < read_prob:
+                mops.append(["r", k, None])
+                continue
+            mops.append(["append" if append else "w", k, next_val])
+            next_val += 1
+            writes[k] += 1
+            if writes[k] == max_writes_per_key:
+                fresh = max(db) + 1
+                active[slot] = fresh
+                db[fresh] = [] if append else None
+                writes[fresh] = 0
+        ops.append(Op(type=INVOKE, process=p, f="txn",
+                      value=[list(m) for m in mops], time=len(ops)))
+        done = []
+        for f, k, v in mops:
+            if f == "r":
+                v = list(db[k]) if append else db[k]
+            elif append:
+                db[k].append(v)
+            else:
+                db[k] = v
+            done.append([f, k, v])
+        heapq.heappush(events, (t + float(rng.uniform(0, max_delay)), p,
+                                done))
+    return History(ops)
+
+
+def component_sizes(g) -> list[int]:
+    """The backward edges of sweep graph `g` in each component of their
+    rank intervals (`cycle_sweep._interval_components`), in rank order;
+    [] with none."""
+    from jepsen_tpu_torch.ops import cycle_sweep
+
+    n = g.n_nodes
+    back = g.nc_mask & cycle_sweep.backward_test(g.rank, g.nc_src, g.nc_dst,
+                                                 n)
+    pos = torch.nonzero(back).flatten()
+    if len(pos) == 0:
+        return []
+    rs = g.rank[g.nc_src[pos].clamp(0, n - 1).long()].to(torch.int64)
+    rd = g.rank[g.nc_dst[pos].clamp(0, n - 1).long()].to(torch.int64)
+    _, comp = cycle_sweep._interval_components(
+        rd, rs, torch.ones_like(pos, dtype=torch.bool))
+    return torch.bincount(comp).tolist()
+
+
+def on_a_cycle(g) -> np.ndarray:
+    """The plain reference of `detect_cycles`' witnesses on sweep graph
+    `g`, on the host: the positions of the backward edges whose ends
+    share a strongly connected component of the whole graph, chain edges
+    included (scipy's `connected_components`)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = g.n_nodes
+    mask = g.nc_mask.cpu().numpy()
+    src = np.clip(g.nc_src.cpu().numpy(), 0, n - 1).astype(np.int64)
+    dst = np.clip(g.nc_dst.cpu().numpy(), 0, n - 1).astype(np.int64)
+    cn = g.chain_nodes.cpu().numpy().astype(np.int64)
+    seg = np.cumsum(g.chain_starts.cpu().numpy()) - 1
+    live = np.nonzero(g.chain_mask.cpu().numpy())[0]
+    # a chain segment runs from one start to the next; its masked-out
+    # entries drop out of it
+    a, b = live[:-1], live[1:]
+    link = seg[a] == seg[b]
+    s_all = np.concatenate([src[mask], cn[a[link]]])
+    d_all = np.concatenate([dst[mask], cn[b[link]]])
+    adj = coo_matrix((np.ones(len(s_all)), (s_all, d_all)), shape=(n, n))
+    _, label = connected_components(adj, directed=True, connection="strong")
+    rank = g.rank.cpu().numpy()
+    pos = np.nonzero(mask & (rank[src] >= rank[dst]))[0]
+    return pos[label[src[pos]] == label[dst[pos]]]
+
+
+class Components:
+    """Inside it, each `detect_cycles` call of the Elle checkers records
+    its backward edges and those of the largest component of their rank
+    intervals (`component_sizes`), as (n_backward, largest) in `seen`,
+    one pair a projection.  With `keep`, it also keeps each call's graph
+    and result for `check_witnesses`."""
+
+    def __init__(self, keep: bool = False):
+        self.seen = []
+        self.keep = keep
+        self.kept = []
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checkers.elle import list_append
+        from jepsen_tpu_torch.ops import cycle_sweep
+
+        self.mods = (list_append, cycle_sweep)
+        self.orig = cycle_sweep.detect_cycles
+
+        def recorded(g, *args, **kw):
+            res = self.orig(g, *args, **kw)
+            self.seen.append(
+                (res.n_backward,
+                 max(component_sizes(g), default=0)))
+            if self.keep:
+                self.kept.append((g, res))
+            return res
+
+        for mod in self.mods:
+            mod.detect_cycles = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.detect_cycles = self.orig
+
+    def largest(self) -> int:
+        return max((c for _, c in self.seen), default=0)
+
+    def check_witnesses(self) -> int:
+        """Assert that each kept call converged with the witnesses of
+        `on_a_cycle`; returns the witnesses checked."""
+        n = 0
+        for g, res in self.kept:
+            want = on_a_cycle(g)
+            assert res.converged, res
+            assert list(res.witness_edge_ids) == list(want), (
+                len(res.witness_edge_ids), len(want))
+            n += len(want)
+        return n
+
+
+def free_base(n: int = 3) -> int:
+    """A base port whose n consecutive ports the OS reports free, for a
+    run's daemons: a fixed port would meet another run's on the same
+    machine."""
+    import contextlib
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        try:
+            with contextlib.ExitStack() as stack:
+                for i in range(n):
+                    s = stack.enter_context(socket.socket())
+                    s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError(f"no {n} consecutive free ports")
 
 
 def log(*args):
@@ -604,7 +864,7 @@ class Twins:
     no result is unpickled in this process while a phase is timed.
     `later` keeps a comparison whose twin is still running, `finish`
     makes every kept comparison (their lines are logged there, after
-    phase 15) and `close` stops the workers and removes the files."""
+    phase 16) and `close` stops the workers and removes the files."""
 
     def __init__(self, n: int):
         import multiprocessing as mp
@@ -728,6 +988,72 @@ def demo_cpu(run_dir: str):
     h = test["history"] = test["history"].materialize()
     return checker_api.check_safe(demo_checker(test["name"], cpu=True),
                                   test, h)
+
+
+def k_cap(cap: int):
+    """A context in which MAX_K_CAP is `cap` in every module that reads
+    it (`cycle_sweep`, `device_core`, `device_rw`)."""
+    import contextlib
+
+    from jepsen_tpu_torch.checkers.elle import device_core, device_rw
+    from jepsen_tpu_torch.ops import cycle_sweep
+
+    @contextlib.contextmanager
+    def lowered():
+        mods = (cycle_sweep, device_core, device_rw)
+        old = [m.MAX_K_CAP for m in mods]
+        for m in mods:
+            m.MAX_K_CAP = cap
+        try:
+            yield
+        finally:
+            for m, v in zip(mods, old):
+                m.MAX_K_CAP = v
+
+    return lowered()
+
+
+def c1_history(n_txns: int, inject: bool):
+    """16a's history: `jitter_history` from seed 0, with one G1c
+    (`synth.inject_wr_cycle`) if `inject`."""
+    from jepsen_tpu_torch.workloads import synth
+
+    h = jitter_history(n_txns, seed=0)
+    if inject:
+        assert synth.inject_wr_cycle(h)
+    return h
+
+
+def c1_cpu(n_txns: int, cap: int, inject: bool):
+    """16a's twin: `c1_history` through `list_append.check` on the CPU,
+    with MAX_K_CAP lowered to `cap`."""
+    from jepsen_tpu_torch.checkers.elle import list_append
+
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    with k_cap(cap):
+        return list_append.check(c1_history(n_txns, inject), C1_MODELS,
+                                 device="cpu")
+
+
+def suite_cpu(run_dir: str, workload: str, models, fused_min_txns: int):
+    """16b's and 16c's twin: the stored run at `run_dir`, decoded here,
+    through its workload's checker (`append` or `wr`, under `models`)
+    on the CPU, as `check_safe` runs it in a test, with the card's
+    `rw_register.FUSED_MIN_TXNS` (7d's twin sets another in its
+    worker)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.checkers.elle import rw_register
+    from jepsen_tpu_torch.workloads import append, wr
+
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    rw_register.FUSED_MIN_TXNS = fused_min_txns
+    test = store.load(run_dir)
+    h = test["history"] = test["history"].materialize()
+    mod = append if workload == "append" else wr
+    checker = mod.workload(consistency_models=models,
+                           device="cpu")["checker"]
+    return checker_api.check_safe(checker, test, h)
 
 
 def race_free(demo: str, r: dict) -> dict:
@@ -1104,6 +1430,11 @@ def main(argv=None) -> int:
 
     # ---- 15. the other nine demos as Jepsen tests on the card -------------
     check_demos(dev, launches, twins)
+
+    # ---- 16. C1 on the card, then the first real-process suites ---------
+    t16 = check_c1(dev, launches, twins)
+    t16 += check_dbs(dev, launches, twins)
+    log(f"[16] phase 16 took {t16:.1f} s")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -2342,7 +2673,8 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
     set to 0 just before each `cli.run` of 14a-14d and read just after;
     the sums go into the main path's `launches`.  The CPU twins of 14b
     and 14c decode the stored runs and check them in `twins`, beside
-    14c-14e."""
+    14c-16; their comparisons come in `twins.finish`, which then removes
+    the runs."""
     import shutil
 
     from jepsen_tpu_torch import cli, store
@@ -2373,32 +2705,23 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
               ("bfs", la, "_witness_regions"),
               ("find_cycle", la, "find_cycle"), ("render", la, "_render"))
 
-    backs = []
-    sweep = la.detect_cycles
-
-    def count_backward(*args, **kw):
-        res = sweep(*args, **kw)
-        backs.append(res.n_backward)
-        return res
+    comps = Components()
 
     def counted(argv):
         """`cli.run(suite, argv)` with the counters set to 0 just before
         it and read just after; returns (exit code, Split, launches,
         peak device memory, the history the run made or decoded).  The
-        backward edges of each projection's sweep go into `backs`."""
-        backs.clear()
-        la.detect_cycles = count_backward
+        backward edges of each projection's sweep and of its largest
+        component go into `comps.seen`."""
+        comps.seen.clear()
         split = Split(stages)
         keep = Split((("history", interpreter, "run"),
                       ("history", LazyHistory, "materialize")), keep=True)
         fill.LAUNCHES = 0
         scan.LAUNCHES = 0
         torch.cuda.reset_peak_memory_stats()
-        try:
-            with split, keep:
-                rc = cli.run(suite, ["--store-dir", base, *argv])
-        finally:
-            la.detect_cycles = sweep
+        with comps, split, keep:
+            rc = cli.run(suite, ["--store-dir", base, *argv])
         n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
         for kname in launches:
             launches[kname] += n[kname]
@@ -2422,14 +2745,12 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
         d = store.latest("demo-append", base=base)
         r14a = results(d)
         n_txns = sum(op.type == "invoke" for op in h)
-        # the completions' order against the apply order: past MAX_K_CAP
-        # backward edges in one projection the sweep cannot converge and
-        # the check says unknown (ROADMAP C)
-        n_back = max(backs, default=0)
-        assert n_back <= cycle_sweep.MAX_K_CAP, (
-            f"14a: {n_back} backward edges in one projection, past "
-            f"MAX_K_CAP = {cycle_sweep.MAX_K_CAP}: the sweep cannot "
-            f"converge on this run's order", r14a)
+        # the completions' order against the apply order: the backward
+        # edges of each projection and the largest component of their
+        # rank intervals, which the sweep closes up to its cap
+        log(f"[14a] backward edges and largest component per projection "
+            f"{comps.seen}, the cap "
+            f"{cycle_sweep.MAX_COMPONENT_BATCHES * cycle_sweep.MAX_K_CAP}")
         assert rc == 0 and r14a["valid?"] is True, (rc, r14a)
         assert "error" not in r14a, r14a
         assert n["locf"] > 0, n
@@ -2441,8 +2762,8 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
             f"{sp.s['check']:.4f} s, on the card {on_card(sp):.4f} s "
             f"(pad {sp.s['pad']:.4f}, infer {sp.s['infer']:.4f}, sweeps "
             f"{sp.s['sweeps']:.4f} s); save_1 {sp.s['save_1']:.2f} s; "
-            f"valid? {r14a['valid?']}; backward edges per projection "
-            f"{backs}; launches {n}; max_memory_allocated {peak} B")
+            f"valid? {r14a['valid?']}; launches {n}; max_memory_allocated "
+            f"{peak} B")
         # ---- 14b. analyze DIR, and the CPU ---------------------------------
         twins.submit("14b", append_cpu, d)
         rc, sp, n, peak, stored = counted(["analyze", d])
@@ -2527,21 +2848,29 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
             f"{RUN_CHILD_OPS} (no --cpu): exit 0 in {t_child:.2f} s, "
             f"results.json valid? true, {len(imported)} modules imported, "
             f"none of jax or jepsen_tpu")
-        # ---- 14b-14c's CPU twins, before the runs they read are removed
-        (r_cpu, _), t_cpu, t_wait = twins.get("14b")
-        assert r_cpu == r14a, (r_cpu, r14a)
+    except BaseException:
+        shutil.rmtree(base, ignore_errors=True)
+        raise
+    log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # ---- 14b-14c's CPU twins: compared in `twins.finish`, which runs
+    # after the workers have read the stored runs; then the runs go
+    def compare_14b(out, t_cpu):
+        assert out[0] == r14a, (out[0], r14a)
         log(f"[14b] AppendChecker(device='cpu') on the stored history in a "
-            f"worker, decode included: {t_cpu:.4f} s, the dict equal "
-            f"(waited {t_wait:.2f} s)")
-        (r_cpu, svgs_cpu), t_cpu, t_wait = twins.get("14c")
+            f"worker, decode included: {t_cpu:.4f} s, the dict equal")
+
+    def compare_14c(out, t_cpu):
+        r_cpu, svgs_cpu = out
+        shutil.rmtree(base, ignore_errors=True)
         assert r_cpu == {k: v for k, v in r14c.items() if k != "viz-files"}
         assert svgs_cpu == svg_bytes, [f for f, _ in svgs_cpu]
         log(f"[14c] AppendChecker(device='cpu') on the stored history in a "
             f"worker, decode included: {t_cpu:.4f} s, the same dict and "
-            f"SVG bytes (waited {t_wait:.2f} s)")
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
-    log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
+            f"SVG bytes")
+
+    twins.later("14b", compare_14b)
+    twins.later("14c", compare_14c)
 
 
 def check_demos(dev: torch.device, launches: dict, twins: Twins) -> None:
@@ -2709,6 +3038,367 @@ def check_demos(dev: torch.device, launches: dict, twins: Twins) -> None:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
+
+
+def check_c1(dev: torch.device, launches: dict, twins: Twins) -> float:
+    """Phase 16a: one component past MAX_K_CAP backward edges, checked on
+    the card (see the module docstring).  The counters are set to 0 just
+    before each check of the full-size history and read just after; the
+    sums go into the main path's `launches`.  Returns the seconds it
+    took."""
+    import math
+
+    from jepsen_tpu_torch.checkers.elle import list_append as la
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+
+    t0 = time.perf_counter()
+    for inject in (False, True):
+        twins.submit(("16a", inject), c1_cpu, C1_CMP_TXNS, C1_CMP_CAP,
+                     inject)
+    cap = cycle_sweep.MAX_K_CAP
+    h, t_make = wall_s(lambda: c1_history(C1_TXNS, False))
+    close = cycle_sweep._close_group
+    groups = []
+
+    def sized(n_nodes, arrays, forward, batch, k, *args, **kw):
+        groups.append((len(batch), k))
+        return close(n_nodes, arrays, forward, batch, k, *args, **kw)
+
+    for inject in (False, True):
+        if inject:
+            h = c1_history(C1_TXNS, True)
+        groups.clear()
+        split = Split((("check", la, "check"), ("pad", la, "pad_packed"),
+                       ("infer", la, "infer"),
+                       ("sweeps", la, "detect_cycles"),
+                       ("groups", cycle_sweep, "_close_group"),
+                       ("closure", cycle_sweep, "_closure_diagonal")))
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        cycle_sweep._close_group = sized
+        try:
+            with Components(keep=True) as comps, split:
+                r = la.check(h, C1_MODELS, device=dev)
+        finally:
+            cycle_sweep._close_group = close
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        peak = torch.cuda.max_memory_allocated()
+        large = [m for m, _ in groups if m > cap]
+        batches = sum(math.ceil(m / k) for m, k in groups)
+        (n_wit, t_wit) = wall_s(comps.check_witnesses)
+        tag = "injected G1c" if inject else "valid"
+        log(f"[16a] {tag}: {C1_TXNS} txns from 50 workers, completions out "
+            f"of apply order (made in {t_make:.2f} s); largest component "
+            f"{comps.largest()} backward edges (MAX_K_CAP {cap}); backward "
+            f"edges and largest component per projection {comps.seen}; "
+            f"{len(groups)} groups of components, {batches} column "
+            f"batches, the groups past MAX_K_CAP {large}; check "
+            f"{split.s['check']:.4f} s (pad {split.s['pad']:.4f}, infer "
+            f"{split.s['infer']:.4f}, sweeps {split.s['sweeps']:.4f} s, of "
+            f"which the groups {split.s['groups']:.4f} s and the meta "
+            f"closures {split.s['closure']:.4f} s); valid? {r['valid?']} "
+            f"{r.get('anomaly-types', [])}; launches {n}; "
+            f"max_memory_allocated {peak} B; every projection's witnesses "
+            f"({n_wit}) equal the backward edges whose ends share a "
+            f"strongly connected component on the host ({t_wit:.2f} s)")
+        assert comps.largest() > cap and large, (comps.seen, groups)
+        assert n["locf"] > 0 and n["seg_or"] > 0, n
+        if inject:
+            assert r["valid?"] is False and "G1c" in r["anomaly-types"], r
+            assert n_wit > 0, n_wit
+        else:
+            assert r["valid?"] is True, r
+    del h, comps
+    torch.cuda.empty_cache()
+    check_closure(dev)
+    # card == CPU, both with MAX_K_CAP lowered; the CPU's come in
+    # `twins.finish`
+    for inject in (False, True):
+        hs = c1_history(C1_CMP_TXNS, inject)
+        with k_cap(C1_CMP_CAP), Components() as comps:
+            got = la.check(hs, C1_MODELS, device=dev)
+        at_cap = la.check(hs, C1_MODELS, device=dev)
+        assert got == at_cap, (got, at_cap)
+        assert comps.largest() > C1_CMP_CAP, comps.seen
+
+        def compare(want, t_cpu, got=got, inject=inject,
+                    largest=comps.largest()):
+            assert got == want, (got, want)
+            log(f"[16a] card == CPU: {C1_CMP_TXNS} txns"
+                f"{' with a G1c' if inject else ''}, MAX_K_CAP lowered to "
+                f"{C1_CMP_CAP} on both (largest component {largest}): the "
+                f"dicts equal, and equal to the card's at the full cap; "
+                f"the CPU's {t_cpu:.2f} s in a worker")
+
+        twins.later(("16a", inject), compare)
+    return time.perf_counter() - t0
+
+
+def check_closure(dev: torch.device) -> None:
+    """16a's meta closure alone: `_closure_diagonal` of a random sparse
+    0/1 matrix on the card against the strongly connected components on
+    the host, then at the component cap, MAX_COMPONENT_BATCHES x
+    MAX_K_CAP edges, on a matrix already transitive (the strict upper
+    triangle, so one squaring step closes it and no edge is on a
+    cycle), with its time and peak device memory."""
+    import math
+
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from jepsen_tpu_torch.ops import cycle_sweep
+
+    dtype = cycle_sweep._closure_dtype(dev)
+    rng = np.random.default_rng(0)
+    m = CLOSURE_CHECK
+    src, dst = rng.integers(0, m, (2, int(1.2 * m)))
+    adj = np.zeros((m, m), np.float32)
+    adj[src, dst] = 1
+    got = cycle_sweep._closure_diagonal(
+        torch.from_numpy(adj).to(dev, dtype)).cpu().numpy()
+    n_comp, label = connected_components(
+        coo_matrix(adj), directed=True, connection="strong")
+    cyclic = np.bincount(label, minlength=n_comp)[label] > 1
+    want = cyclic | (np.diagonal(adj) > 0)
+    assert (got == want).all(), (int(got.sum()), int(want.sum()))
+    log(f"[16a] _closure_diagonal of a random ({m}, {m}) {dtype} matrix, "
+        f"{len(src)} edges: the diagonal equals the host's strongly "
+        f"connected components ({int(want.sum())} nodes on a cycle)")
+    m = cycle_sweep.MAX_COMPONENT_BATCHES * cycle_sweep.MAX_K_CAP
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    meta = torch.ones((m, m), dtype=dtype, device=dev).triu_(1)
+    t0 = time.perf_counter()
+    diag = cycle_sweep._closure_diagonal(meta)
+    on_cycle = int(diag.sum())
+    t_step = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    del meta, diag
+    torch.cuda.empty_cache()
+    log(f"[16a] the cap, MAX_COMPONENT_BATCHES "
+        f"{cycle_sweep.MAX_COMPONENT_BATCHES} x MAX_K_CAP = {m} edges: "
+        f"_closure_diagonal of a transitive ({m}, {m}) {dtype} matrix, one "
+        f"squaring step, {t_step * 1e3:.2f} ms (at most "
+        f"{math.ceil(math.log2(m))} steps: "
+        f"{t_step * math.ceil(math.log2(m)):.2f} s), {on_cycle} nodes on a "
+        f"cycle; peak device memory {peak} B above what the phase held, "
+        f"{peak / (m * m * 2):.3f} matrices")
+    assert on_cycle == 0, on_cycle
+    assert peak < 2 * m * m * 2 + (1 << 30), peak
+
+
+def check_dbs(dev: torch.device, launches: dict, twins: Twins) -> float:
+    """Phases 16b-16d: the sqlite and regd suites against real processes,
+    checked on the card (see the module docstring), through each suite's
+    command line in process (`cli.run(suite(), argv)`).  The counters
+    are set to 0 just before each `cli.run` and read just after; the
+    sums go into the main path's `launches`.  The CPU twins decode each
+    stored run and check it in `twins`.  Returns the seconds it took."""
+    import shutil
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.checkers import perf, timeline
+    from jepsen_tpu_torch.checkers.elle import list_append as la
+    from jepsen_tpu_torch.checkers.elle import rw_register
+    from jepsen_tpu_torch.dbs import regd_suite, sqlite
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.generator import interpreter
+    from jepsen_tpu_torch.nemesis import core as nem
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+
+    t0 = time.perf_counter()
+    base = os.path.join(HERE, "build", "chip_smoke_dbs")
+    shutil.rmtree(base, ignore_errors=True)
+    stages = (("workload", interpreter, "run"), ("save_0", store, "save_0"),
+              ("check", checker_api, "check_safe"),
+              ("save_1", store, "save_1"),
+              ("infer", la, "infer"), ("sweeps", la, "detect_cycles"),
+              ("rw sweeps", cycle_sweep, "detect_cycles"))
+    runs = []
+
+    def counted(parser_dispatch, argv):
+        """`cli.run(parser_dispatch, argv)` with the counters set to 0
+        just before it and read just after; returns (exit code, Split,
+        launches, peak device memory, the history, Components)."""
+        split = Split(stages)
+        keep = Split((("history", interpreter, "run"),), keep=True)
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with Components() as comps, split, keep:
+            rc = cli.run(parser_dispatch, ["--store-dir", base, *argv])
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return (rc, split, n, torch.cuda.max_memory_allocated(),
+                keep.kept["history"][-1][1], comps)
+
+    def run_line(tag, what, rc, sp, n, peak, h, comps, r):
+        n_txns = sum(op.type == "invoke" and op.f == "txn" for op in h)
+        bad = {t: sum(op.type == t and op.f == "txn" for op in h)
+               for t in ("fail", "info")}
+        on_card = sp.s["infer"] + sp.s["sweeps"] + sp.s["rw sweeps"]
+        log(f"[{tag}] {what}: {len(h)} ops ({n_txns} txns invoked, "
+            f"{bad['fail']} fail, {bad['info']} info) in "
+            f"{sp.s['workload']:.2f} s ({n_txns / sp.s['workload']:.1f} "
+            f"txns/s); save_0 {sp.s['save_0']:.2f} s; check "
+            f"{sp.s['check']:.4f} s, on the card {on_card:.4f} s (infer "
+            f"{sp.s['infer']:.4f}, sweeps "
+            f"{sp.s['sweeps'] + sp.s['rw sweeps']:.4f} s); exit "
+            f"{rc}, valid? {r['valid?']} {r.get('anomaly-types', [])}; "
+            f"backward edges and largest component per projection "
+            f"{comps.seen}; launches {n}; max_memory_allocated {peak} B")
+
+    def stored(name, models, workload="append"):
+        d = store.latest(name, base=base)
+        twins.submit(("16", d), suite_cpu, d, workload, models,
+                     rw_register.FUSED_MIN_TXNS)
+        r = store.load(d)["results"]
+        runs.append((name, d, r))
+        return d, r
+
+    try:
+        # ---- 16c. regd: stale reads, plain, the primary crashed ---------
+        # before 16b, so that the regd runs' CPU twins (their host checks
+        # take 15-30 s on the CPU) run beside the sqlite runs
+        nodes = [a for nd in REGD_NODES for a in ("-n", nd)]
+        regd = ("strict-serializable",)
+
+        def stale(opts):
+            t = regd_suite.append_test(
+                dict(opts, **{"consistency-models": regd,
+                              "base-port": free_base()}),
+                stale_reads=True)
+            t["nemesis"] = BlockBackups(t["db"])
+            t["generator"] = g.then(
+                g.synchronize(g.nemesis([{"type": "invoke",
+                                          "f": "block"}])),
+                g.then(g.synchronize(g.clients(g.limit(
+                    REGD_STALE_OPS, t["generator"]))),
+                    g.nemesis([{"type": "invoke", "f": "heal"}])))
+            return t
+
+        rc, sp, n, peak, h, comps = counted(
+            cli.test_all_cmd({"append": stale}),
+            ["test-all", "--only", "append", *nodes, "--time-limit",
+             str(RUN_TIME_LIMIT)])
+        _, r = stored("regd-append", regd)
+        run_line("16c", f"regd with stale reads on the backups, blocked "
+                 f"from the primary, {REGD_STALE_OPS} ops", rc, sp, n,
+                 peak, h, comps, r)
+        assert rc == 1 and r["valid?"] is False, (rc, r)
+        rc, sp, n, peak, h, comps = counted(regd_suite.suite(), [
+            "test-all", "--only", "append", *nodes, "--time-limit",
+            str(REGD_TIME_LIMIT), "--base-port", str(free_base())])
+        d_regd, r = stored("regd-append", regd)
+        run_line("16c", f"regd test-all --only append, 3 daemons, "
+                 f"--time-limit {REGD_TIME_LIMIT}", rc, sp, n, peak, h,
+                 comps, r)
+        assert rc == 0 and r["valid?"] is True, (rc, r)
+        assert n["locf"] > 0, n
+
+        def crashed(opts):
+            t = regd_suite.append_test(dict(opts,
+                                            **{"base-port": free_base()}))
+            db, wl = t["db"], t["generator"]
+            t["nemesis"] = nem.node_start_stopper(
+                lambda test, nodes: [nodes[0]],
+                lambda test, node: db.kill(test, node),
+                lambda test, node: db.start_and_await(test, node),
+                start_f="kill-primary", stop_f="restart-primary")
+            t["generator"] = g.then(
+                g.clients(g.limit(REGD_PHASE_OPS, wl)),
+                g.then(
+                    g.synchronize(g.nemesis(
+                        [{"type": "invoke", "f": "kill-primary"}])),
+                    g.then(
+                        g.clients(g.limit(REGD_PHASE_OPS, wl)),
+                        g.then(
+                            g.synchronize(g.nemesis(
+                                [{"type": "invoke",
+                                  "f": "restart-primary"}])),
+                            g.synchronize(g.clients(
+                                g.limit(REGD_PHASE_OPS, wl)))))))
+            return t
+
+        rc, sp, n, peak, h, comps = counted(
+            cli.test_all_cmd({"append": crashed}),
+            ["test-all", "--only", "append", *nodes, "--time-limit",
+             str(RUN_TIME_LIMIT)])
+        _, r = stored("regd-append", regd)
+        run_line("16c", f"regd, the primary killed and restarted between "
+                 f"three phases of {REGD_PHASE_OPS} ops", rc, sp, n, peak,
+                 h, comps, r)
+        restart = next(op.index for op in h if op.f == "restart-primary")
+        oks = [op.index for op in h if op.type == "ok" and op.f == "txn"]
+        assert rc == 0 and r["valid?"] is True, (rc, r)
+        assert min(oks) < restart < max(oks), restart
+
+        # ---- 16b. sqlite, append and wr ------------------------------------
+        for name, models in (("append", ("serializable",)),
+                             ("wr", ("snapshot-isolation",))):
+            rc, sp, n, peak, h, comps = counted(sqlite.suite(), [
+                "test-all", "--only", name, "-c", DB_CONC, "--ops",
+                str(DB_OPS), "--time-limit", str(RUN_TIME_LIMIT)])
+            d, r = stored(f"sqlite-{name}", models, name)
+            run_line("16b", f"sqlite test-all --only {name} -c {DB_CONC} "
+                     f"--ops {DB_OPS}", rc, sp, n, peak, h, comps, r)
+            assert rc == 0 and r["valid?"] is True, (name, rc, r)
+            if name == "append":
+                assert n["locf"] > 0, n
+        # ---- 16d. the post-run artifacts on 16c's plain run ---------------
+        test = store.load(d_regd)
+        h = test["history"].materialize()
+        arts = checker_api.compose({"perf": perf.perf(),
+                                    "timeline": timeline.html_timeline(),
+                                    "stats": checker_api.Stats()})
+        res, t_arts = wall_s(lambda: arts.check(test, h))
+        html = os.path.join(store.test_dir(test), "timeline.html")
+        plots = res["perf"]["latency-graph"].get("plot", "written")
+        assert res["valid?"] is True and os.path.getsize(html) > 0, res
+        log(f"[16d] perf(), html_timeline() and Stats composed on 16c's "
+            f"run ({len(h)} ops) in {t_arts:.2f} s: valid? "
+            f"{res['valid?']}; timeline.html {os.path.getsize(html)} B in "
+            f"the store; plots {plots}; stats count "
+            f"{res['stats']['count']}, ok {res['stats']['ok-count']}")
+        # ---- card == CPU ---------------------------------------------------
+        for name, d, r in runs:
+            r_cpu, t_cpu, t_wait = twins.get(("16", d))
+            assert r_cpu == r, (name, r_cpu, r)
+            log(f"[16] {name} ({os.path.basename(d)}): its checker on the "
+                f"CPU on the stored run in a worker, decode included: "
+                f"{t_cpu:.4f} s, the dict equal (waited {t_wait:.2f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+class BlockBackups:
+    """16c's nemesis (`test_regd_stale_reads_caught`'s): the backups
+    drop replication from the primary on `block` until `heal`, so their
+    local reads freeze while the primary commits."""
+
+    def __init__(self, db):
+        self.db = db
+
+    def setup(self, test):
+        return self
+
+    def invoke(self, test, op):
+        from jepsen_tpu_torch.dbs import regd_suite
+
+        for node in test["nodes"][1:]:
+            req = {"op": "block", "peers": [test["nodes"][0]]} \
+                if op["f"] == "block" else {"op": "heal"}
+            regd_suite.request(self.db.port(test, node), req)
+        return dict(op, type="info")
+
+    def teardown(self, test):
+        pass
 
 
 def compaction(device_wgl, search) -> None:

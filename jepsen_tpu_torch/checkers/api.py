@@ -12,9 +12,9 @@ history).  `compose` is valid iff every sub-checker is, unknown if any is
 unknown and none is false.
 
 `Linearizable` and `QueueChecker` run `knossos.analysis`, whose device leg
-runs on the CUDA card unless they are given ``device="cpu"``.  The JAX
-package's `output_path` (a checker's artifact file in the store) waits for
-the port's store.
+runs on the CUDA card unless they are given ``device="cpu"``.
+`output_path` resolves a checker's artifact file in the store (the perf,
+timeline and clock checkers write there).
 """
 
 from __future__ import annotations
@@ -126,6 +126,22 @@ def compose(checkers: Dict[str, Checker]) -> Checker:
     return Compose(checkers)
 
 
+def output_path(test: dict, opts: Optional[dict], filename: str) -> str:
+    """Resolve (and create) the artifact path for a checker's output file
+    in the store dir, honoring opts["subdirectory"] (reference checkers'
+    :subdirectory opt).  Shared by perf/timeline/clock."""
+    import os
+
+    from .. import store
+
+    d = store.test_dir(test)
+    sub = (opts or {}).get("subdirectory")
+    if sub:
+        d = os.path.join(d, str(sub))
+        os.makedirs(d, exist_ok=True)
+    return os.path.join(d, filename)
+
+
 class NoopChecker(Checker):
     def check(self, test, history, opts=None):
         return {"valid?": True}
@@ -137,13 +153,22 @@ noop = NoopChecker
 class Stats(Checker):
     """Op counts by :f and overall ok/fail/info rates (reference `stats`).
 
-    Valid iff every :f has at least one ok (unknown on empty).  The JAX
-    package counts histories of 65,536 ops or more through its columnar
-    fold (`history/fold.py`), which the port does not have yet; the port
-    counts every size with the per-op loop, which gives the same dict."""
+    Valid iff every :f has at least one ok (unknown on empty).  Large
+    histories take the columnar fold path (numpy group counts over column
+    chunks, chunk-parallel) instead of per-op Python — the vectorized
+    built-in fold the reference gets from fold.clj fusion."""
+
+    COLUMNAR_MIN = 65536
 
     def check(self, test, history, opts=None):
-        by_f, total = self._loop_counts(history)
+        try:
+            n = len(history)
+        except TypeError:
+            n = 0
+        if n >= self.COLUMNAR_MIN:
+            by_f, total = self._columnar_counts(history)
+        else:
+            by_f, total = self._loop_counts(history)
         if not total:
             return {"valid?": "unknown", "count": 0}
         valid = all(c[OK] > 0 for c in by_f.values())
@@ -167,6 +192,44 @@ class Stats(Checker):
                 continue
             total[op.type] += 1
             by_f.setdefault(op.f, _Counter())[op.type] += 1
+        return by_f, total
+
+    @staticmethod
+    def _columnar_counts(history):
+        import numpy as np
+
+        from ..history.fold import Folder, fold_spec
+
+        def col(cols):
+            m = cols["client?"] & (cols["type"] != INVOKE)
+            fs = cols["f"][m]
+            ts = cols["type"][m]
+            pairs: Dict[Any, _Counter] = {}
+            # group by f via sort-unique, then bincount types inside
+            for fv in set(fs.tolist()):
+                sel = fs == fv
+                vals, counts = np.unique(ts[sel], return_counts=True)
+                c = _Counter({str(t): int(n) for t, n in
+                              zip(vals, counts)})
+                pairs[fv] = c
+            return pairs
+
+        def comb(a, b):
+            for k, c in b.items():
+                if k in a:
+                    a[k].update(c)
+                else:
+                    a[k] = c
+            return a
+
+        f = fold_spec(name="stats", reducer_identity=dict,
+                      reducer=lambda acc, op: acc,  # unused on column path
+                      combiner_identity=dict, combiner=comb, columnar=col)
+        with Folder(history, columnar=True) as folder:
+            by_f = folder.fold(f)
+        total = _Counter()
+        for c in by_f.values():
+            total.update(c)
         return by_f, total
 
 

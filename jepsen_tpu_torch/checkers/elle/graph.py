@@ -405,20 +405,37 @@ def _find_nonadjacent_cycle(nodes, edges, spec, budget):
     DFS over simple paths with on-path visited set, pruned by the
     nonadjacency NFA.  Budgeted: gives up (returns None) rather than
     reporting a non-simple walk.
+
+    The JAX module's search, step for step: a stack of entries, each
+    node's edges scanned when it is popped.  Where that one copies its
+    path and on-path set into every entry, here an entry holds its
+    depth, and one path and set are cut back to the popped entry's
+    parent and extended by its edge: the stack is last in, first out,
+    so the path above the parent's depth then belongs to subtrees
+    already done.  The same cycle, or None at the same budget step.
     """
     adj = _Adj(nodes, edges, spec.rels)
     if not len(adj):
         return None
+    neighbors = adj.neighbors
+    left = budget[0]
     # start DFS only at rw edge tails: every qualifying cycle has one
     for (a0, b0) in adj.rw_edges():
-        # path so far: a0 -rw-> b0 ... ; states: rw_count, last_was_rw
-        stack = [(b0, [(a0, REL_RW, b0)], {a0, b0}, 1, True)]
+        # entries (node, parent, rel, depth, rw_count, last_was_rw): the
+        # path to node is `depth` edges, the first a0 -rw-> b0
+        path, on_path = [], {a0}
+        stack = [(b0, a0, REL_RW, 1, 1, True)]
         while stack:
-            if budget[0] <= 0:
+            if left <= 0:
+                budget[0] = left
                 return None
-            v, path, on_path, rw_n, last_rw = stack.pop()
-            for (w, rel) in adj.neighbors(v):
-                budget[0] -= 1
+            v, u, rel_in, depth, rw_n, last_rw = stack.pop()
+            while len(path) >= depth:
+                on_path.discard(path.pop()[2])
+            path.append((u, rel_in, v))
+            on_path.add(v)
+            for (w, rel) in neighbors(v):
+                left -= 1
                 is_rw = rel == REL_RW
                 if is_rw and last_rw:
                     continue  # adjacent rw
@@ -427,10 +444,12 @@ def _find_nonadjacent_cycle(nodes, edges, spec, budget):
                     if is_rw:
                         continue
                     if rw_n >= 2:
+                        budget[0] = left
                         return path + [(v, rel, a0)]
                     continue
                 if w in on_path:
                     continue
-                stack.append((w, path + [(v, rel, w)], on_path | {w},
+                stack.append((w, v, rel, depth + 1,
                               rw_n + (1 if is_rw else 0), is_rw))
+    budget[0] = left
     return None

@@ -56,7 +56,11 @@ from jepsen_tpu_torch.checkers.elle.specs import (
 from jepsen_tpu_torch.checkers.elle.txn_cycles import _render_cycle
 from jepsen_tpu_torch.history.ir import HistoryIR
 from jepsen_tpu_torch.history.soa import TXN_OK, PackedTxns, pack_txns
-from jepsen_tpu_torch.ops.cycle_sweep import SweepGraph, detect_cycles
+from jepsen_tpu_torch.ops.cycle_sweep import (
+    SweepGraph,
+    detect_cycles,
+    unconverged_reason,
+)
 
 #: edge families of `infer`, in the order they are concatenated
 EDGE_FAMILIES = ("ww", "wr", "rw", "tb", "bt")
@@ -217,7 +221,7 @@ def _check_device(history, consistency_models, anomalies, max_reported,
         if not res.converged:
             raise SweepNotConverged(
                 f"cycle sweep of projection {sorted(rels)} did not converge "
-                f"({res.n_backward} backward edges)")
+                f"({unconverged_reason(res)})")
         if not res.has_cycle:
             continue
         # ---- host classification over witness regions --------------------

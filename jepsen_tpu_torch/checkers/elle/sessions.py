@@ -170,6 +170,11 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
     for proc, seq in sessions.items():
         last_read: Dict[Any, Any] = {}   # key -> last externally read ver
         last_write: Dict[Any, Any] = {}  # key -> last written ver
+        # the versions whose dependencies this session has activated, and
+        # those read with all their ancestors: activating again adds
+        # nothing to a set, so it is skipped (the JAX module repeats it)
+        activated: Dict[Any, set] = {}
+        closed: Dict[Any, set] = {}
         # cross-key obligations activated by causally-observed versions:
         # reads of k1 must not precede any version in oblig_*[k1]
         oblig_wfr: Dict[Any, set] = {}
@@ -184,9 +189,12 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
                         v = INIT  # observed the unwritten initial state
                     # cross-key checks against previously activated
                     # obligations (check BEFORE activating this read's)
+                    # (`precedes` inlined: these loops are the walk's
+                    # hottest)
+                    anc_k = anc_of.get(k, {})
                     if "writes-follow-reads" in want:
                         for u in oblig_wfr.get(k, ()):
-                            if precedes(k, v, u):
+                            if v in anc_k.get(u, ()):
                                 report("writes-follow-reads",
                                        {"process": proc, "op": inv,
                                         "key": k, "read": v,
@@ -194,14 +202,20 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
                                 break
                     if "monotonic-writes" in want:
                         for w in oblig_mw.get(k, ()):
-                            if precedes(k, v, w):
+                            if v in anc_k.get(w, ()):
                                 report("monotonic-writes",
                                        {"process": proc, "op": inv,
                                         "key": k, "read": v,
                                         "cross-key-prior-write": w})
                                 break
-                    if wfr_dep or mw_dep:
+                    read_all = closed.setdefault(k, set())
+                    if (wfr_dep or mw_dep) and v not in read_all:
+                        read_all.add(v)
+                        done = activated.setdefault(k, set())
                         for ver in ({v} | anc_of.get(k, {}).get(v, set())):
+                            if ver in done:
+                                continue
+                            done.add(ver)
                             for k1, u in wfr_dep.get((k, ver), {}).items():
                                 oblig_wfr.setdefault(k1, set()).add(u)
                             for k1, w in mw_dep.get((k, ver), {}).items():

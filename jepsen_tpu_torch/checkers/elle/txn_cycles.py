@@ -121,7 +121,11 @@ def _cycle_regions(proj: EdgeList, n_nodes: int, rank: np.ndarray,
             SweepNotConverged,
             _witness_regions,
         )
-        from jepsen_tpu_torch.ops.cycle_sweep import SweepGraph, detect_cycles
+        from jepsen_tpu_torch.ops.cycle_sweep import (
+            SweepGraph,
+            detect_cycles,
+            unconverged_reason,
+        )
 
         dev = backend.resolve(device)
         src = torch.from_numpy(np.ascontiguousarray(proj.src, np.int32))
@@ -139,7 +143,7 @@ def _cycle_regions(proj: EdgeList, n_nodes: int, rank: np.ndarray,
         if not res.converged:
             raise SweepNotConverged(
                 f"cycle sweep over {len(proj.src)} host-built edges did not "
-                f"converge ({res.n_backward} backward edges)")
+                f"converge ({unconverged_reason(res)})")
         if not res.has_cycle:
             return None
         regions = _witness_regions(

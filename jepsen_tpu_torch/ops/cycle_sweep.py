@@ -10,7 +10,8 @@ Counterpart of `jepsen_tpu/ops/cycle_sweep.py`, single window:
    resolved by segmented prefix-OR scans (the seg-OR kernel on a CUDA
    tensor), other forward edges by scatter-max relaxation, to a fixpoint.
 3. Meta-closure: a cycle exists iff the K-node meta-graph (e -> e' iff
-   dst(e) ->* src(e')) has one; closure by repeated squaring.
+   dst(e) ->* src(e')) has one; closure by repeated squaring
+   (`_closure_diagonal`).
 
 Control flow runs on the host: the fixpoint is a Python loop with one
 scalar read per round, the skips for zero backward edges are Python
@@ -26,8 +27,11 @@ most as many rounds; a history that is long after an early backward
 edge, which the JAX module cannot sweep within `MAX_ROUNDS_CAP`,
 converges here.  And past `MAX_K_CAP` backward edges, where the JAX
 module reports itself inexact, `detect_cycles` sweeps the components of
-their rank intervals in batches (`_by_components`), exact while no
-component holds more than `MAX_K_CAP`.
+their rank intervals in groups (`_by_components`).  Each group has its
+label columns swept at most `MAX_K_CAP` at a time and is closed as one
+meta matrix (`_close_group`), so a component of more than `MAX_K_CAP`
+edges is exact too, up to `MAX_COMPONENT_BATCHES` column batches; only
+past that is the result inexact.
 """
 
 from __future__ import annotations
@@ -54,6 +58,14 @@ I32 = torch.int32
 #: the host oracle rather than approximate
 MAX_K_CAP = 8192
 MAX_ROUNDS_CAP = 1024
+#: a component of more than MAX_K_CAP backward edges is swept in column
+#: batches of MAX_K_CAP and closed as one (m, m) meta matrix
+#: (`_close_group`); past this many batches `detect_cycles` reports
+#: itself inexact.  The closure holds two bfloat16 (m, m) matrices on the
+#: card, 4 m^2 B; half of an 80 GB card for them gives m <= 100,000, so
+#: 12 batches: 98,304 edges, 2 x 19.3 GB, the other half left to the
+#: graph and the checker that hold the card meanwhile
+MAX_COMPONENT_BATCHES = 12
 
 
 @dataclasses.dataclass
@@ -163,6 +175,38 @@ def _changed_in_window(diff, rank, limit) -> bool:
     return bool(hit)
 
 
+def _fixpoint(n_nodes: int, k: int, max_rounds: int, rank, nc_src, nc_dst,
+              fwd_mask, chain_nodes, chain_starts, chain_mask, bdst, bvalid,
+              limit) -> Tuple[torch.Tensor, bool]:
+    """The (N, k) int8 label plane of forward reachability from the heads
+    `bdst` of the valid columns, through the chains and the forward
+    non-chain edges `fwd_mask` only (so no column reads another), and
+    whether it converged within `max_rounds`.  With `limit` (k,), each
+    column's rank window, a round that changes nothing inside the windows
+    ends the fixpoint; without it, one that changes nothing at all."""
+
+    def chain_pass(labels):
+        vals = gather_rows(labels, chain_nodes, chain_mask)
+        pref = segmented_prefix_or(vals, chain_starts, exclusive=True)
+        return scatter_or(labels, chain_nodes, pref, chain_mask)
+
+    def relax_pass(labels):
+        vals = gather_rows(labels, nc_src, fwd_mask)
+        return scatter_or(labels, nc_dst, vals, fwd_mask)
+
+    labels = chain_pass(_seed_labels(n_nodes, k, bdst, bvalid))
+    changed, rounds = True, 0
+    while changed and rounds < max_rounds:
+        new = chain_pass(relax_pass(chain_pass(labels)))
+        diff = new != labels
+        changed = bool(torch.any(diff))
+        if changed and limit is not None:
+            changed = _changed_in_window(diff, rank, limit)
+        labels = new
+        rounds += 1
+    return labels, not (changed and rounds >= max_rounds)
+
+
 def _sweep_window(n_nodes: int, k: int, max_rounds: int,
                   rank, nc_src, nc_dst, nc_mask,
                   chain_nodes, chain_starts, chain_mask,
@@ -202,43 +246,18 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
         bdst = _endpoint_table(k, back_id, in_k, nc_dst)
     bvalid = torch.arange(k, device=dev) < n_back
     fwd_mask = nc_mask & ~is_back  # forward non-chain edges only
-
-    def chain_pass(labels):
-        vals = gather_rows(labels, chain_nodes, chain_mask)
-        pref = segmented_prefix_or(vals, chain_starts, exclusive=True)
-        return scatter_or(labels, chain_nodes, pref, chain_mask)
-
-    def relax_pass(labels):
-        vals = gather_rows(labels, nc_src, fwd_mask)
-        return scatter_or(labels, nc_dst, vals, fwd_mask)
-
-    labels = chain_pass(_seed_labels(n_nodes, k, bdst, bvalid))
     limit = _rank_window(rank, bsrc, bdst, bvalid) if n_back <= k else None
-    changed, rounds = True, 0
-    while changed and rounds < max_rounds:
-        new = chain_pass(relax_pass(chain_pass(labels)))
-        diff = new != labels
-        changed = bool(torch.any(diff))
-        if changed and limit is not None:
-            changed = _changed_in_window(diff, rank, limit)
-        labels = new
-        rounds += 1
-    converged = not (changed and rounds >= max_rounds)
+    labels, converged = _fixpoint(n_nodes, k, max_rounds, rank, nc_src,
+                                  nc_dst, fwd_mask, chain_nodes,
+                                  chain_starts, chain_mask, bdst, bvalid,
+                                  limit)
 
-    # meta[e, e2] = dst(e) ->* src(e2), read from labels[src(e2), e]
+    # meta[e, e2] = dst(e) ->* src(e2), read from labels[src(e2), e];
+    # backward edge e is on a cycle iff its closure's diagonal holds e
     valid8 = bvalid.to(I8)
     meta = gather_rows(labels, bsrc, bvalid).T
     meta = meta & valid8[:, None] & valid8[None, :]
-    # closure by repeated squaring.  The product runs in float32 and is
-    # exact: entries are 0/1 and every sum is at most k <= MAX_K_CAP =
-    # 8192 < 2^24, so even TF32 inputs (0 and 1 are exact in it) with
-    # float32 accumulation cannot turn a positive sum into 0.
-    closure = meta
-    for _ in range(max(1, math.ceil(math.log2(max(2, k))))):
-        r = closure.to(torch.float32)
-        closure = closure | ((r @ r) > 0).to(I8)
-    # backward edge e is on a cycle iff closure[e][e]
-    witness = torch.diagonal(closure) & valid8
+    witness = _closure_diagonal(meta.to(_closure_dtype(dev))).to(I8) & valid8
     return bool(torch.any(witness == 1)), witness, n_back, converged
 
 
@@ -335,6 +354,9 @@ class SweepResult:
     witness_edge_ids: np.ndarray  # indices into the non-chain edge arrays
     n_backward: int
     converged: bool
+    #: backward edges in the largest component of their rank intervals,
+    #: where `detect_cycles` sweeps by components (0 otherwise)
+    largest_component: int = 0
 
 
 def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
@@ -391,6 +413,20 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
                        n_backward=n_back, converged=conv)
 
 
+def unconverged_reason(res: SweepResult) -> str:
+    """Why `res` (converged=False) is inexact, for the error that
+    reports it: a component past the cap, or a fixpoint past
+    `MAX_ROUNDS_CAP` rounds."""
+    cap = MAX_COMPONENT_BATCHES * MAX_K_CAP
+    if res.largest_component > cap:
+        return (f"{res.n_backward} backward edges, "
+                f"{res.largest_component} of them in one component of "
+                f"their rank intervals, past the cap of {cap} that the "
+                f"card closes")
+    return (f"{res.n_backward} backward edges, no fixpoint within "
+            f"{MAX_ROUNDS_CAP} rounds")
+
+
 def _by_components(g: SweepGraph, arrays, has: bool, n_back: int,
                    max_rounds: int, deadline) -> SweepResult:
     """`detect_cycles` past `MAX_K_CAP` backward edges (the JAX module
@@ -398,11 +434,13 @@ def _by_components(g: SweepGraph, arrays, has: bool, n_back: int,
     one component of overlapping rank intervals
     (`_interval_components`), so a sweep over whole components, with the
     other backward edges left out of the graph, finds every cycle
-    through them.  The components go into batches of at most k edges, k
-    the least power of two (from 128) that holds the largest; each batch
-    is swept to convergence, growing its rounds up to `MAX_ROUNDS_CAP`.
-    A component of more than `MAX_K_CAP` edges leaves the result inexact,
-    as before."""
+    through them.  The components go, in rank order, into groups of at
+    most k edges, k the least power of two (from 128, at most
+    `MAX_K_CAP`) that holds the largest; a component larger than k is a
+    group of its own.  Each group is swept k columns at a time and
+    closed whole (`_close_group`).  A component of more than
+    `MAX_COMPONENT_BATCHES` * `MAX_K_CAP` edges leaves the result
+    inexact."""
     rank, nc_src, nc_dst, nc_mask = arrays[:4]
     is_back = nc_mask & backward_test(rank, nc_src, nc_dst, g.n_nodes)
     pos = torch.nonzero(is_back).flatten()
@@ -411,15 +449,18 @@ def _by_components(g: SweepGraph, arrays, has: bool, n_back: int,
     order, comp = _interval_components(rd, rs,
                                        torch.ones_like(pos, dtype=torch.bool))
     sizes = torch.bincount(comp).tolist()
-    if max(sizes) > MAX_K_CAP:
+    largest = max(sizes)
+    if largest > MAX_COMPONENT_BATCHES * MAX_K_CAP:
         return SweepResult(has_cycle=has,
                            witness_edge_ids=np.zeros(0, np.int64),
-                           n_backward=n_back, converged=False)
-    k = max(128, _pow2(max(sizes)))
-    # whole components in rank order, at most k edges a batch
+                           n_backward=n_back, converged=False,
+                           largest_component=largest)
+    k = max(128, _pow2(min(largest, MAX_K_CAP)))
+    # whole components in rank order, at most k edges a group unless one
+    # component alone holds more
     cuts, filled = [0], 0
     for size in sizes:
-        if filled + size > k:
+        if filled and filled + size > k:
             cuts.append(cuts[-1] + filled)
             filled = 0
         filled += size
@@ -427,27 +468,111 @@ def _by_components(g: SweepGraph, arrays, has: bool, n_back: int,
     forward = nc_mask & ~is_back
     found, converged = [], True
     for a, b in zip(cuts[:-1], cuts[1:]):
+        batch = torch.sort(pos[order[a:b]]).values
+        wit, conv = _close_group(g.n_nodes, arrays, forward, batch, k,
+                                 max_rounds, deadline)
+        converged = converged and conv
+        found.append(batch[wit])
+    wit_ids = torch.sort(torch.cat(found)).values.cpu().numpy() \
+        .astype(np.int64)
+    return SweepResult(has_cycle=bool(len(wit_ids)),
+                       witness_edge_ids=wit_ids, n_backward=n_back,
+                       converged=converged, largest_component=largest)
+
+
+def _close_group(n_nodes: int, arrays, forward, batch, k: int,
+                 max_rounds: int, deadline) -> Tuple[torch.Tensor, bool]:
+    """The backward edges at positions `batch`, whole components of their
+    rank intervals, m of them: (which lie on a cycle, as an (m,) bool,
+    and whether every column batch converged).
+
+    Label column e is seeded at dst(e) and relaxed through chains and
+    forward edges only (`_fixpoint`), so the columns never read each
+    other and can be swept k at a time, each batch to its own fixpoint
+    with its rounds grown up to `MAX_ROUNDS_CAP`.  Every backward edge
+    of the group stays out of the relaxation, and each column's rank
+    window comes from all of them (`_rank_window` holds only when every
+    backward edge of the graph is among its valid ones).  Each batch
+    fills its rows of one (m, m) meta matrix, meta[e, e2] =
+    labels_e[src(e2)]; `_closure_diagonal` closes it."""
+    rank, nc_src, nc_dst = arrays[:3]
+    dev = rank.device
+    m = len(batch)
+    bsrc, bdst = nc_src[batch].to(I32), nc_dst[batch].to(I32)
+    every = torch.ones(m, dtype=torch.bool, device=dev)
+    limit = _rank_window(rank, bsrc, bdst, every)
+    meta = torch.zeros((m, m), dtype=_closure_dtype(dev), device=dev)
+    converged = True
+    for a in range(0, m, k):
         if deadline is not None:
             deadline.check("cycle-sweep")
-        batch = torch.sort(pos[order[a:b]]).values
-        mask = forward.clone()
-        mask[batch] = True
+        b = min(a + k, m)
+        # k columns a batch, the last one's tail invalid: no seed, and a
+        # window of -1 that no change falls inside
+        cols = torch.arange(a, a + k, device=dev).clamp(max=m - 1)
+        valid = torch.arange(a, a + k, device=dev) < b
         rounds = max_rounds
         while True:
-            has_b, wit, _, conv = _sweep_window(
-                g.n_nodes, k, rounds, rank, nc_src, nc_dst, mask,
-                *arrays[4:])
+            labels, conv = _fixpoint(
+                n_nodes, k, rounds, rank, nc_src, nc_dst, forward,
+                *arrays[4:], bdst[cols], valid,
+                torch.where(valid, limit[cols], -1))
             if conv or rounds >= MAX_ROUNDS_CAP:
                 break
             rounds = min(rounds * 2, MAX_ROUNDS_CAP)
         converged = converged and conv
-        if has_b:
-            found.append(batch[torch.nonzero(wit[:b - a]).flatten()])
-    wit_ids = (torch.sort(torch.cat(found)).values.cpu().numpy()
-               .astype(np.int64) if found else np.zeros(0, np.int64))
-    return SweepResult(has_cycle=bool(len(wit_ids)),
-                       witness_edge_ids=wit_ids, n_backward=n_back,
-                       converged=converged)
+        meta[a:b] = gather_rows(labels, bsrc, every).T[:b - a].to(meta.dtype)
+        del labels
+    return _closure_diagonal(meta), converged
+
+
+def _closure_dtype(dev: torch.device) -> torch.dtype:
+    """The meta closure's operand type: bfloat16 on the card (half the
+    memory of float32, and the tensor cores' rate), float32 on the CPU,
+    where bfloat16 products are slow.  Either gives the same 0/1
+    closure (`_closure_diagonal`)."""
+    return torch.bfloat16 if dev.type == "cuda" else torch.float32
+
+
+def _closure_diagonal(meta: torch.Tensor) -> torch.Tensor:
+    """(m,) bool: which nodes of the 0/1 meta graph `meta` (m, m), in a
+    floating type, lie on a cycle, the diagonal of its transitive
+    closure.  Closed in place by repeated squaring, c <- min(c + c @ c,
+    1), until the count of ones stops growing (c is then transitive) or
+    ceil(log2 m) squarings have covered every path; one (m, m) product
+    buffer besides `meta`, so two matrices at most.
+
+    Exact in bfloat16 or float32, at any accumulation: every term of
+    c @ c is a product of two 0/1 entries, so no term is negative and
+    nothing cancels.  A sum of such terms is 0 exactly when every term
+    is 0, and is at least 1 once one term is 1, however its partial
+    sums are rounded (rounding to nearest never takes a value of at
+    least 1 below 1, and a sum of at most m ones overflows neither
+    type).  So the clamp leaves exactly the 0/1 entries of the boolean
+    product."""
+    c = meta
+    p = torch.empty_like(c)
+    ones = _count_ones(c)
+    for _ in range(max(1, math.ceil(math.log2(max(2, c.shape[0]))))):
+        torch.matmul(c, c, out=p)
+        c.add_(p).clamp_(max=1)
+        grown = _count_ones(c)
+        if grown == ones:
+            break
+        ones = grown
+    del p
+    return torch.diagonal(c) > 0
+
+
+def _count_ones(c: torch.Tensor) -> int:
+    """The nonzero entries of matrix `c`, counted over blocks of rows of
+    at most 2^26 entries: one `count_nonzero` of the whole matrix makes
+    an int64 copy of it."""
+    rows = max(1, (1 << 26) // max(c.shape[1], 1))
+    total = torch.zeros((), dtype=torch.int64, device=c.device)
+    for a in range(0, c.shape[0], rows):
+        total += torch.count_nonzero(c[a:a + rows])
+    return int(total)
 
 
 def _pow2(n: int) -> int:

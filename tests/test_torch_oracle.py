@@ -170,6 +170,37 @@ def test_find_cycle_equal_to_jax(seed):
         assert n_hits > 0
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_nonadjacent_search_equal_to_jax_at_every_budget(seed):
+    # the port's G-nonadjacent search keeps one path where the JAX one
+    # copies it into every stack entry: the same cycle, or None at the
+    # same step, with the same budget left
+    rng = random.Random(seed)
+    n = rng.randint(6, 40)
+    m = rng.randint(n, 4 * n)
+    src = np.array([rng.randrange(n) for _ in range(m)], dtype=np.int32)
+    dst = np.array([rng.randrange(n) for _ in range(m)], dtype=np.int32)
+    # rw twice as likely as each other rel, so that cycles with two
+    # nonadjacent rw edges occur
+    rel = np.array([rng.choice((0, 1, 2, 2, 4)) for _ in range(m)],
+                   dtype=np.int8)
+    nodes = np.arange(n, dtype=np.int64)
+    hits = 0
+    for name in ("G-nonadjacent", "G-nonadjacent-realtime"):
+        je, te = (g.EdgeList(src, dst, rel).project(s.CYCLE_ANOMALY_SPECS[
+            name].rels) for g, s in ((jgraph, jspecs), (tgraph, tspecs)))
+        for steps in (1, 5, 40, 300, 3_000, 2_000_000):
+            jb, tb = [steps], [steps]
+            want = jgraph._find_nonadjacent_cycle(
+                nodes, je, jspecs.CYCLE_ANOMALY_SPECS[name], jb)
+            got = tgraph._find_nonadjacent_cycle(
+                nodes, te, tspecs.CYCLE_ANOMALY_SPECS[name], tb)
+            assert (got, tb) == (want, jb), (name, steps)
+            hits += got is not None
+    if seed == 0:
+        assert hits > 0
+
+
 def test_edge_helpers_equal_to_jax():
     rng = np.random.default_rng(5)
     inv = np.sort(rng.integers(0, 200, 40))
@@ -220,6 +251,46 @@ def test_sessions_equal_to_jax(path):
     want = getattr(jsess, fn)(h)
     got = getattr(tsess, fn)(carry(h))
     assert got == want
+
+
+def _session_history(seed, n_procs=6, n_keys=4, n_txns=400):
+    """A JAX rw-register history whose reads see random earlier versions:
+    every session guarantee is broken many times over, across keys."""
+    rng = random.Random(seed)
+    written = {k: [] for k in range(n_keys)}
+    ops, t = [], 0
+    for i in range(n_txns):
+        p = rng.randrange(n_procs)
+        mops = []
+        for _ in range(rng.randint(1, 4)):
+            k = rng.randrange(n_keys)
+            if rng.random() < 0.5:
+                v = rng.choice(written[k] + [None])
+                mops.append(["r", k, v])
+            else:
+                v = len(written[k]) + 1
+                written[k].append(v)
+                mops.append(["w", k, v])
+        ops.append({"type": "invoke", "f": "txn", "process": p,
+                    "value": [[f, k, None if f == "r" else v]
+                              for f, k, v in mops], "time": t})
+        ops.append({"type": "ok", "f": "txn", "process": p, "value": mops,
+                    "time": t + 1})
+        t += 2
+    return jops.history(ops)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sessions_walk_equal_to_jax_on_violations(seed):
+    # the port's walk skips re-activating a version's dependencies, which
+    # adds nothing to a set: the same reports, in the same order, as the
+    # JAX walk on histories full of cross-key violations
+    h = _session_history(seed)
+    want = jsess.check(h)
+    got = tsess.check(carry(h))
+    assert got == want
+    assert {"writes-follow-reads-violation",
+            "monotonic-writes-violation"} <= set(got["anomaly-types"])
 
 
 def test_sessions_find_violations():
