@@ -32,7 +32,7 @@ Phases, each asserting; any failure exits non-zero:
         forward-fill and no segmented-OR launches per call, and its time
         beside phase 3's `core_check`;
      b. the stale-read corpus of phase 4 under strong snapshot isolation
-        at 16,384 txns: a G-single-family anomaly with explained cycles,
+        at 8,192 txns: a G-single-family anomaly with explained cycles,
         segmented-OR launches, and the check's time split into pad, infer,
         sweeps and host classification (witness BFS, cycle search,
         rendering);
@@ -174,8 +174,8 @@ Phases, each asserting; any failure exits non-zero:
         valid, a failed writer, stale reads; the CPU's in a worker);
  13. a stored run streamed to the card through `store` and
      `checkers.elle.stream`:
-     a. `synth.la_history(n_txns=100,000, n_keys=12,500, concurrency=10)`
-        (200,000 ops) saved with `store.save_0` into a temporary store and
+     a. `synth.la_history(n_txns=50,000, n_keys=6,250, concurrency=10)`
+        (100,000 ops) saved with `store.save_0` into a temporary store and
         checked by `stream.check_stored`: valid, equal to `core_check_exact`
         on `pad_packed(pack_txns(h))`; the save, the staging (decode,
         pack and copies) against the decode and pack alone, the check,
@@ -268,20 +268,48 @@ Phases, each asserting; any failure exits non-zero:
         whether the plots were made or skipped (no matplotlib);
      and card == CPU: each stored run of 16b-16c checked by its
      workload's checker on the CPU in a worker, the same dict.
+ 17. Jepsen tests under the fault packages of `nemesis.combined`, each
+     through `core.run` into a store under `build/`, the package on the
+     test map (`"nemesis-packages"`, which shades the perf plots' fault
+     windows), its generator on the nemesis thread beside the clients
+     under a time limit, then its final heal ops (17b and 17c run
+     first, so that their CPU twins run beside 17a):
+     a. the toy raft (`dbs/toyraft.append_test`, n1-n5, 10 workers
+        staggered 3 ms apart, as regd's are, strict serializability)
+        under the partition, kill and membership packages
+        (`ToyRaftMembers`), a fault every second for 30 s: valid, with
+        partitions, kills and an ok membership change completed; then
+        `tests/test_toyraft.py`'s stale-read run (n5 isolated, its
+        local reads served without a quorum, about 110 ops) under
+        strong snapshot isolation: invalid;
+     b. the `append` demo on `MemClient` (10 workers) under the skew and
+        membership packages (`SimClockSkewNemesis` serves reads from a
+        snapshot; `SimMembershipState`), 1,000 txns paced over 5 s:
+        invalid, its cycles found by the sweeps on the card (seg-OR
+        launches);
+     c. the regd suite on three daemons on free ports under the kill
+        package (`RegDB.kill`, a kill or a restart every 4 s) for 20 s:
+        valid, with a kill and a restart completed;
+     each run's workload rate, its ok, fail and info txns, its fault ops
+     by `f` with their completion types, `save_0`, the check and its
+     part on the card, the backward edges and largest component of
+     each projection, launches and peak device memory; and card == CPU:
+     each stored run checked by its workload's checker on the CPU in a
+     worker, the same dict.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
 call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
-14a-14d, 15a-15b and 16b-16c, and each full-size check of 16a, and
-read just after each (phase 12: after the
+14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
+`core.run` of 17a-17c, and read just after each (phase 12: after the
 resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b, 14c, 15c and 16 and, from the end of phase 6 on, make the seeded
+14b, 14c, 15c, 16 and 17 and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
 comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
 after phase 16, and the workers are stopped before the script exits.
@@ -312,9 +340,9 @@ N_KEYS = N_TXNS // 8        # bench.py's key count for that rung
 N_STALE = 64
 N_SMALL = 65_536
 #: 6b-6c: the stale-read check through the API, cut from 65,536 txns to
-#: keep the script inside its time limit with phase 15 (at 65,536 the
-#: host's `find_cycle` took 80 of 6b's 86 s)
-N_API_STALE = 16_384
+#: keep the script inside its time limit with phases 15-17 (at 65,536
+#: the host's `find_cycle` took 80 of 6b's 86 s, at 16,384 29 of 31 s)
+N_API_STALE = 8_192
 G_SINGLE_FAMILY = {"G-single", "G-single-process", "G-single-realtime"}
 #: the stale-read checks' model: it proscribes the G-single family and not
 #: G-nonadjacent, whose budgeted simple-cycle search on the host holds a
@@ -388,11 +416,12 @@ C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
 C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
 C5_STALE_AT = 2              # ... and this one N_STALE stale reads
 N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
-#: 13a: 100,000 txns, half the size first planned: at 200,000 the whole
-#: script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3 host,
-#: phase 13 187.5 s of it, most of that the Python decode and pack of the
-#: stored ops (PERF.md)
-STREAM_KW = dict(n_txns=100_000, n_keys=12_500, concurrency=10, seed=0)
+#: 13a: 50,000 txns, a quarter of the size first planned: at 200,000 the
+#: whole script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3
+#: host, phase 13 187.5 s of it, most of that the Python decode and pack
+#: of the stored ops; at 100,000, with phase 17, 1,044.1 s, phase 13
+#: 108.2 s (PERF.md)
+STREAM_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
 STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
 N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
@@ -449,6 +478,37 @@ REGD_NODES = ("n1", "n2", "n3")
 REGD_TIME_LIMIT = 30
 REGD_PHASE_OPS = 3_300
 REGD_STALE_OPS = 120
+#: 17a: the toy raft (`dbs/toyraft.append_test`) from 10 workers under
+#: the partition, kill and membership packages, each fault cycle
+#: `FAULT_INTERVAL` s, for `RAFT_TIME_LIMIT` s; then
+#: `test_toyraft_stale_reads_caught`'s run under strong snapshot
+#: isolation (under strict serializability the host's budgeted
+#: G-nonadjacent search takes 0.5 s or, on an interleaving without such
+#: a cycle, the whole budget: 34 s on one CPU core)
+RAFT_CONC = 10
+RAFT_TIME_LIMIT = 30
+#: 17a's clients are staggered as regd's are: unpaced, a lost quorum
+#: fails each txn at once, and 30 s made 37,141 txns (25,065 of them
+#: fails) whose session check took 13.8 s on the host CPU of an H100
+#: machine
+RAFT_STAGGER = 0.003
+FAULT_INTERVAL = 1.0
+RAFT_STALE_MODELS = ("strong-snapshot-isolation",)
+#: 17b: the `append` demo on `MemClient` from 10 workers under the skew
+#: and membership packages (every `SKEW_INTERVAL` s), `SKEW_TXNS` txns
+#: paced by a client latency of `SKEW_LATENCY` s over `SKEW_TIME_LIMIT`
+#: s: 1,000 txns, not 5,000, since each skew window's stale reads give
+#: the serializable check's host search more cycles to classify (a
+#: check of 5,000 took 96 s on one CPU core; of 1,000, 13.2 s beside
+#: an H100, 0.1 s of it on the card)
+SKEW_TXNS = 1_000
+SKEW_LATENCY = 0.04
+SKEW_TIME_LIMIT = 5.0
+SKEW_INTERVAL = 0.5
+#: 17c: the regd suite on three daemons under the kill package, a kill
+#: or a restart every `REGD_KILL_INTERVAL` s, for `REGD_KILL_TIME_LIMIT` s
+REGD_KILL_INTERVAL = 4.0
+REGD_KILL_TIME_LIMIT = 20
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -1435,6 +1495,10 @@ def main(argv=None) -> int:
     t16 = check_c1(dev, launches, twins)
     t16 += check_dbs(dev, launches, twins)
     log(f"[16] phase 16 took {t16:.1f} s")
+
+    # ---- 17. Jepsen tests under fault packages ------------------------------
+    t17 = check_faults(dev, launches, twins)
+    log(f"[17] phase 17 took {t17:.1f} s")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -3202,22 +3266,17 @@ def check_dbs(dev: torch.device, launches: dict, twins: Twins) -> float:
     from jepsen_tpu_torch import cli, store
     from jepsen_tpu_torch.checkers import api as checker_api
     from jepsen_tpu_torch.checkers import perf, timeline
-    from jepsen_tpu_torch.checkers.elle import list_append as la
     from jepsen_tpu_torch.checkers.elle import rw_register
     from jepsen_tpu_torch.dbs import regd_suite, sqlite
     from jepsen_tpu_torch.generator import core as g
     from jepsen_tpu_torch.generator import interpreter
     from jepsen_tpu_torch.nemesis import core as nem
-    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+    from jepsen_tpu_torch.ops import fill, scan
 
     t0 = time.perf_counter()
     base = os.path.join(HERE, "build", "chip_smoke_dbs")
     shutil.rmtree(base, ignore_errors=True)
-    stages = (("workload", interpreter, "run"), ("save_0", store, "save_0"),
-              ("check", checker_api, "check_safe"),
-              ("save_1", store, "save_1"),
-              ("infer", la, "infer"), ("sweeps", la, "detect_cycles"),
-              ("rw sweeps", cycle_sweep, "detect_cycles"))
+    stages = suite_stages()
     runs = []
 
     def counted(parser_dispatch, argv):
@@ -3268,22 +3327,10 @@ def check_dbs(dev: torch.device, launches: dict, twins: Twins) -> float:
         nodes = [a for nd in REGD_NODES for a in ("-n", nd)]
         regd = ("strict-serializable",)
 
-        def stale(opts):
-            t = regd_suite.append_test(
-                dict(opts, **{"consistency-models": regd,
-                              "base-port": free_base()}),
-                stale_reads=True)
-            t["nemesis"] = BlockBackups(t["db"])
-            t["generator"] = g.then(
-                g.synchronize(g.nemesis([{"type": "invoke",
-                                          "f": "block"}])),
-                g.then(g.synchronize(g.clients(g.limit(
-                    REGD_STALE_OPS, t["generator"]))),
-                    g.nemesis([{"type": "invoke", "f": "heal"}])))
-            return t
-
         rc, sp, n, peak, h, comps = counted(
-            cli.test_all_cmd({"append": stale}),
+            cli.test_all_cmd({"append": lambda opts: regd_stale_test(
+                dict(opts, **{"base-port": free_base()}),
+                REGD_STALE_OPS)}),
             ["test-all", "--only", "append", *nodes, "--time-limit",
              str(RUN_TIME_LIMIT)])
         _, r = stored("regd-append", regd)
@@ -3375,6 +3422,268 @@ def check_dbs(dev: torch.device, launches: dict, twins: Twins) -> float:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return time.perf_counter() - t0
+
+
+def check_faults(dev: torch.device, launches: dict, twins: Twins) -> float:
+    """Phase 17: Jepsen tests under the fault packages of
+    `nemesis.combined`, each through `core.run` (the interpreter, then
+    `store.save_0`, the workload's checker on the card through
+    `check_safe`, and `save_1`), with the package on the test map as
+    `"nemesis-packages"` (see the module docstring).  The counters are
+    set to 0 just before each `core.run` and read just after; the sums
+    go into the main path's `launches`.  The CPU twins decode each
+    stored run and check it in `twins`.  Returns the seconds it took."""
+    import collections
+    import random
+    import shutil
+
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.__main__ import DEMOS
+    from jepsen_tpu_torch.checkers.elle import rw_register
+    from jepsen_tpu_torch.dbs import regd_suite, toyraft
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.nemesis import combined
+    from jepsen_tpu_torch.ops import fill, scan
+
+    t0 = time.perf_counter()
+    base = os.path.join(HERE, "build", "chip_smoke_faults")
+    shutil.rmtree(base, ignore_errors=True)
+    stages = suite_stages()
+    runs = []
+
+    def under(test, pkg, clients, seconds):
+        return with_package(dict(test, **{"store-dir": base}), pkg,
+                            clients, seconds)
+
+    def counted(test, twin, *args):
+        """`core.run(test)` with the counters set to 0 just before it and
+        read just after, and its stored run's CPU twin, `twin(dir,
+        *args)`, submitted; returns (the run, Split, launches, peak
+        device memory, Components)."""
+        split = Split(stages)
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with Components() as comps, split:
+            done = core.run(test)
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        d = store.test_dir(done)
+        twins.submit(("17", d), twin, d, *args)
+        runs.append((done["name"], d))
+        return done, split, n, torch.cuda.max_memory_allocated(), comps
+
+    def run_line(tag, what, done, sp, n, peak, comps):
+        """Logs the run; returns the completions of its fault ops as
+        {f: {type: count}}."""
+        h, r = done["history"], done["results"]
+        n_txns = sum(op.type == "invoke" and op.f == "txn" for op in h)
+        done_txns = collections.Counter(
+            op.type for op in h if op.f == "txn" and op.type != "invoke")
+        faults = collections.defaultdict(collections.Counter)
+        for op in h:
+            if op.process == "nemesis" and op.type != "invoke":
+                faults[op.f][op.type] += 1
+        faults = {f: dict(c) for f, c in sorted(faults.items())}
+        on_card = sp.s["infer"] + sp.s["sweeps"] + sp.s["rw sweeps"]
+        log(f"[{tag}] {what}: {len(h)} ops ({n_txns} txns invoked, "
+            f"{done_txns['ok']} ok, {done_txns['fail']} fail, "
+            f"{done_txns['info']} info) in {sp.s['workload']:.2f} s "
+            f"({n_txns / sp.s['workload']:.1f} txns/s); faults "
+            f"{faults}; save_0 {sp.s['save_0']:.2f} s; check "
+            f"{sp.s['check']:.4f} s, on the card {on_card:.4f} s (infer "
+            f"{sp.s['infer']:.4f}, sweeps "
+            f"{sp.s['sweeps'] + sp.s['rw sweeps']:.4f} s); valid? "
+            f"{r['valid?']} {r.get('anomaly-types', [])}; backward edges "
+            f"and largest component per projection {comps.seen}; "
+            f"launches {n}; max_memory_allocated {peak} B")
+        return faults
+
+    fused = rw_register.FUSED_MIN_TXNS
+    try:
+        # ---- 17b. the sim cluster: clock skew and membership changes ------
+        # first, and 17c second, so that their CPU twins (host checks of
+        # 15-20 s on the CPU) run beside 17a
+        nodes = list(RUN_NODES)
+        t = DEMOS["append"]({"nodes": nodes, "concurrency": RAFT_CONC,
+                             "seed": 0, "client-latency": SKEW_LATENCY})
+        pkg = combined.nemesis_package({
+            "faults": {"skew", "membership"}, "nodes": nodes,
+            "interval": SKEW_INTERVAL, "rng": random.Random(0)})
+        done, sp, n, peak, comps = counted(
+            under(t, pkg, g.limit(SKEW_TXNS, t["generator"]),
+                  SKEW_TIME_LIMIT), demo_cpu)
+        faults = run_line("17b", f"the append demo on MemClient, "
+                          f"{RAFT_CONC} workers, clock skew and membership "
+                          f"changes every {SKEW_INTERVAL} s", done, sp, n,
+                          peak, comps)
+        assert done["results"]["valid?"] is False, done["results"]
+        assert "start-skew" in faults, faults
+        assert n["seg_or"] > 0, n
+
+        # ---- 17c. regd: the kill package on real processes -----------------
+        regd = ("strict-serializable",)
+        t = regd_suite.append_test({"nodes": list(REGD_NODES),
+                                    "concurrency": len(REGD_NODES),
+                                    "base-port": free_base(),
+                                    "store-dir": base})
+        pkg = combined.nemesis_package({
+            "faults": {"kill"}, "db": t["db"],
+            "interval": REGD_KILL_INTERVAL, "rng": random.Random(0)})
+        done, sp, n, peak, comps = counted(
+            under(t, pkg, t["generator"], REGD_KILL_TIME_LIMIT), suite_cpu,
+            "append", regd, fused)
+        faults = run_line("17c", f"regd, 3 daemons, a kill or a restart "
+                          f"every {REGD_KILL_INTERVAL} s for "
+                          f"{REGD_KILL_TIME_LIMIT} s", done, sp, n, peak,
+                          comps)
+        assert done["results"]["valid?"] is True, done["results"]
+        assert faults.get("kill") and faults.get("start"), faults
+
+        # ---- 17a. the toy raft: partitions, kills, membership changes -----
+        raft = ("strict-serializable",)
+        t = toyraft.append_test({"nodes": nodes, "concurrency": RAFT_CONC})
+        db = t["db"]
+        pkg = combined.nemesis_package({
+            "faults": {"partition", "kill", "membership"}, "db": db,
+            "membership_state": toyraft.ToyRaftMembers(db),
+            "interval": FAULT_INTERVAL, "rng": random.Random(0)})
+        done, sp, n, peak, comps = counted(
+            under(t, pkg, g.stagger(RAFT_STAGGER, t["generator"]),
+                  RAFT_TIME_LIMIT), suite_cpu, "append", raft, fused)
+        faults = run_line("17a", f"toyraft, {len(nodes)} nodes, "
+                          f"{RAFT_CONC} workers staggered {RAFT_STAGGER} s, "
+                          f"partitions, kills and membership changes every "
+                          f"{FAULT_INTERVAL} s for {RAFT_TIME_LIMIT} s",
+                          done, sp, n, peak, comps)
+        assert done["results"]["valid?"] is True, done["results"]
+        assert "start-partition" in faults and "kill" in faults, faults
+        assert any(faults.get(f, {}).get("ok")
+                   for f in ("leave-node", "join-node")), faults
+        assert n["locf"] > 0, n
+        done, sp, n, peak, comps = counted(
+            raft_stale_test({"nodes": nodes, "store-dir": base,
+                             "concurrency": 5,
+                             "consistency-models": RAFT_STALE_MODELS}),
+            suite_cpu, "append", RAFT_STALE_MODELS, fused)
+        run_line("17a", "toyraft with stale reads on n5, isolated", done,
+                 sp, n, peak, comps)
+        assert done["results"]["valid?"] is False, done["results"]
+
+        # ---- card == CPU ---------------------------------------------------
+        for name, d in runs:
+            r = store.load(d)["results"]
+            r_cpu, t_cpu, t_wait = twins.get(("17", d))
+            assert r_cpu == r, (name, r_cpu, r)
+            log(f"[17] {name} ({os.path.basename(d)}): its checker on the "
+                f"CPU on the stored run in a worker, decode included: "
+                f"{t_cpu:.4f} s, the dict equal (waited {t_wait:.2f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+def suite_stages():
+    """The `Split` stages of a suite's run (16b-16c, 17): the
+    workload, `save_0`, the check and `save_1`, and the check's parts on
+    the card, `infer` and the sweeps of the append and wr checkers."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.checkers.elle import list_append as la
+    from jepsen_tpu_torch.generator import interpreter
+    from jepsen_tpu_torch.ops import cycle_sweep
+
+    return (("workload", interpreter, "run"), ("save_0", store, "save_0"),
+            ("check", checker_api, "check_safe"),
+            ("save_1", store, "save_1"),
+            ("infer", la, "infer"), ("sweeps", la, "detect_cycles"),
+            ("rw sweeps", cycle_sweep, "detect_cycles"))
+
+
+def with_package(test: dict, pkg: dict, clients, seconds: float) -> dict:
+    """`test` under the fault package `pkg` (`nemesis.combined`): its
+    nemesis, its generator on the nemesis thread beside `clients` (on the
+    client threads only: regd's generator would hand the nemesis thread
+    txns too) for `seconds`, then its final heal ops, and the package on
+    the test map as `"nemesis-packages"` (the perf plots' fault
+    windows), as the JAX package's campaigns wire a package into a
+    test."""
+    from jepsen_tpu_torch.generator import core as g
+
+    test["nemesis"] = pkg["nemesis"]
+    test["nemesis-packages"] = [pkg]
+    test["generator"] = g.phases(
+        g.time_limit(seconds, g.any_gen(g.clients(clients),
+                                        g.nemesis(pkg["generator"]))),
+        g.nemesis(pkg["final_generator"]))
+    return test
+
+
+def raft_stale_test(opts: dict) -> dict:
+    """17a's stale run (`tests/test_toyraft.py`'s
+    `test_toyraft_stale_reads_caught`): the toy raft with
+    `stale_reads=True`; after 40 txns n5 is cut off and thread 4, bound
+    to it, reads its frozen state without a quorum while the majority
+    commits 60 more."""
+    from jepsen_tpu_torch.dbs import toyraft
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.nemesis import core as nem
+    from jepsen_tpu_torch.workloads import append
+
+    t = toyraft.append_test(opts, stale_reads=True)
+    db, nodes = t["db"], t["nodes"]
+
+    class IsolateN5(nem.Nemesis):
+        def invoke(self, test, op):
+            for b in nodes[:-1]:
+                db.cluster.block(nodes[-1], b)
+                db.cluster.block(b, nodes[-1])
+            return dict(op, type="info", value="n5 isolated")
+
+    t["nemesis"] = IsolateN5()
+    # one generator across the phases keeps the appended values unique;
+    # reads on the majority side pin the version order past the stale
+    # prefix, which gives each stale read its rw successor
+    writes = append.gen(read_frac=0.3, key_count=3,
+                        max_writes_per_key=100_000)
+    reads = g.stagger(0.02, g.limit(10, lambda test, ctx: {
+        "f": "txn", "value": [("r", k, None) for k in range(3)]}))
+    t["generator"] = g.phases(
+        g.limit(40, g.clients(writes)),
+        g.nemesis([{"type": "invoke", "f": "isolate"}]),
+        g.any_gen(g.limit(60, g.clients(writes)),
+                  g.on_threads(lambda th: th == 4, reads)))
+    return t
+
+
+def regd_stale_test(opts: dict, n_ops: int) -> dict:
+    """16c's stale run (`tests/test_regd_suite.py`'s
+    `test_regd_stale_reads_caught`): regd under strict serializability
+    with local reads on the backups, which `BlockBackups` cuts off from
+    the primary for the whole workload.  `n_ops` txns over 3 keys run
+    first; once all have completed, every client thread reads every
+    key.  The primary's reads order each key's appends, and each
+    backup's frozen read starts after the primary acknowledged them, so
+    every run holds a read that is stale in real time, however loaded
+    the host."""
+    from jepsen_tpu_torch.dbs import regd_suite
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.workloads import append
+
+    t = regd_suite.append_test(
+        dict(opts, **{"consistency-models": ("strict-serializable",)}),
+        stale_reads=True)
+    t["nemesis"] = BlockBackups(t["db"])
+    writes = g.stagger(0.003, append.gen(key_count=3,
+                                         max_writes_per_key=100_000))
+    reads = {"f": "txn", "value": [("r", k, None) for k in range(3)]}
+    t["generator"] = g.then(
+        g.synchronize(g.nemesis([{"type": "invoke", "f": "block"}])),
+        g.then(g.phases(g.clients(g.limit(n_ops, writes)),
+                        g.clients(g.each_thread(reads))),
+               g.nemesis([{"type": "invoke", "f": "heal"}])))
+    return t
 
 
 class BlockBackups:

@@ -5,8 +5,9 @@ L4b).
 The nemesis is a special single-threaded client driven by the generator's
 nemesis thread: `invoke` receives fault ops (`start-partition`, `kill`,
 `bump-clock`, ...) and performs them against the cluster via the control
-plane.  Host-side only.  The sim, membership, clock, combined and
-faketime nemeses of the JAX package are not ported yet.
+plane.  Host-side only.  The fault packages are in `combined`, the
+membership, clock and file nemeses in `membership`, `time` and `file`,
+and their in-process twins for the sim cluster in `sim`.
 """
 
 from jepsen_tpu_torch.nemesis.core import (Nemesis, Noop, bridge,

@@ -31,7 +31,7 @@ import sys
 
 import pytest
 
-from chip_smoke import free_base
+from chip_smoke import free_base, regd_stale_test
 from jepsen_tpu import control as jcontrol
 from jepsen_tpu import core as jcore
 from jepsen_tpu import db as jdb
@@ -329,42 +329,13 @@ def test_regd_primary_crash_recovery(tmp_path):
     assert res == want
 
 
-class BlockBackups(tnem.Nemesis):
-    """Backups drop replication from the primary (`block`) until
-    `heal`: their local reads freeze while the primary commits."""
-
-    def __init__(self, db):
-        self.db = db
-
-    def invoke(self, test, op):
-        for node in test["nodes"][1:]:
-            req = {"op": "block", "peers": [test["nodes"][0]]} \
-                if op["f"] == "block" else {"op": "heal"}
-            trs.request(self.db.port(test, node), req)
-        return dict(op, type="info")
-
-
-def stale_reads_test(opts, n_ops):
-    """`test_regd_stale_reads_caught`'s test: backups blocked for the
-    whole workload, with stale local reads on, under strict
-    serializability."""
-    t = trs.append_test(dict(opts, **{
-        "consistency-models": ("strict-serializable",)}), stale_reads=True)
-    t["nemesis"] = BlockBackups(t["db"])
-    t["generator"] = tg.then(
-        tg.synchronize(tg.nemesis([{"type": "invoke", "f": "block"}])),
-        tg.then(
-            tg.synchronize(tg.clients(tg.limit(n_ops, t["generator"]))),
-            tg.nemesis([{"type": "invoke", "f": "heal"}])))
-    return t
-
-
 def test_regd_stale_reads_caught(tmp_path):
-    t = stale_reads_test(regd_opts(tmp_path, "stale"), 80)
+    t = regd_stale_test(regd_opts(tmp_path, "stale"), 80)
     with within(180):
         done = tcore.run(t)
     res = done["results"]
     assert res["valid?"] is False, res
+    assert "G-single-realtime" in res["anomaly-types"], res
     want = jappend.workload(consistency_models=("strict-serializable",)
                             )["checker"].check({}, jax_history(
                                 done["history"]))
