@@ -188,8 +188,8 @@ Phases, each asserting; any failure exits non-zero:
  14. a Jepsen test run on the card, through `python -m jepsen_tpu_torch`'s
      suite (`cli.run(__main__.suite(), argv)`, in process) on
      the in-process sim cluster, with a store under `build/`:
-     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 100000
-        --time-limit 120` (50 workers, 200,000 ops): exit 0, valid, no
+     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 50000
+        --time-limit 120` (50 workers, 100,000 ops): exit 0, valid, no
         error, LOCF launches; the workload's time and rate, `save_0`, the
         check and its part on the card (infer and sweeps), the history's
         size, launches and peak device memory; the backward edges of each
@@ -277,7 +277,7 @@ Phases, each asserting; any failure exits non-zero:
      a. the toy raft (`dbs/toyraft.append_test`, n1-n5, 10 workers
         staggered 3 ms apart, as regd's are, strict serializability)
         under the partition, kill and membership packages
-        (`ToyRaftMembers`), a fault every second for 30 s: valid, with
+        (`ToyRaftMembers`), a fault every second for 15 s: valid, with
         partitions, kills and an ok membership change completed; then
         `tests/test_toyraft.py`'s stale-read run (n5 isolated, its
         local reads served without a quorum, about 110 ops) under
@@ -296,14 +296,46 @@ Phases, each asserting; any failure exits non-zero:
      each projection, launches and peak device memory; and card == CPU:
      each stored run checked by its workload's checker on the CPU in a
      worker, the same dict.
+ 18. telemetry and live checking on the card, through `core.run` into a
+     store under `build/` (`check_live`):
+     a. the `append` demo on the sim cluster, n1-n5 and 50 workers,
+        20,000 txns, with telemetry on, `"profile-dir"` under
+        `chiprun_out/` (a `torch.profiler` trace) and `"live-check":
+        {"inproc": true}` (an in-process verifier session fed by the
+        interpreter while the workload runs, sealed at the end): valid;
+        the sealed session's verdict, its incremental verdict and the
+        results agree; `telemetry.json` and `trace.json` written, the
+        span tree holding `run`, `workload`, `store.save_0`, `check:*`,
+        `live-check.open` and `live-check.finish`; every span with a
+        `device_time_ns` (CUDA events) has it above 0 and at most its
+        wall time; the profiler's device events name the LOCF kernel;
+        LOCF launches; the workload, check and seal times and the count
+        of `verifier.sweep` spans;
+     b. 18a's history with one G1c (`synth.inject_wr_cycle`) fed in
+        segments of 256 ops to a fresh session through
+        `VerifierService.ingest`, a rolling verdict after each: invalid
+        from the segment that closes the cycle; the seal gives G1c,
+        equal to the batch check (`list_append.check` on the card, with
+        seg-OR launches);
+     c. `verifier.sweep.batched_sweep` over 64 sessions of 2,000 txns,
+        every 8th with a G1c: one `detect_cycles` dispatch on the card;
+        each session's verdict digest equal to its own per-session
+        sweep's on the CPU in a worker; the dispatch's time, nodes and
+        edges;
+     d. 18b's service closed and reopened over its store: the journal
+        replays to the identical `verdict_digest`;
+     e. `trace DIR --top 10` and `tail DIR` of 18a's run through
+        `cli.run`, in process: both exit 0;
+     f. card == CPU: 18a's and 18b's stored histories fed to sessions on
+        the CPU in a worker, sealed: the same digests and verdicts.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
 call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
-`core.run` of 17a-17c, and read just after each (phase 12: after the
-resumed call); the kernels' `launches` are their sum (phases 8 and 10
+`core.run` of 17a-17c, 18a's `core.run` and 18b's seal, and read just
+after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
@@ -312,7 +344,17 @@ spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
 14b, 14c, 15c, 16 and 17 and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
 comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
-after phase 16, and the workers are stopped before the script exits.
+after phase 18, and the workers are stopped before the script exits.
+
+Process and thread hygiene (`guarded`): the script marks its environment
+with `JT_SMOKE_TAG=<pid>.<start time>`, which every process it starts
+inherits (daemons started under `setsid` too), and turns SIGTERM and
+SIGHUP into `SystemExit`, so that every `finally` runs.  After the
+phases, whether they passed or failed, it closes the services it opened
+(`opened`), stops the workers and `multiprocessing`'s resource tracker,
+kills and logs every process still carrying the mark, and lists the
+threads left; then `[end] processes left: N, threads left: M`.  Any left
+behind fails the run: exit 1 and no `ok` line.
 
 Imports `torch`, `numpy`, scipy (16a's host reference) and the port; never
 `jax` or `jepsen_tpu`.
@@ -427,7 +469,9 @@ N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
 #: flags of the JAX package's demo (`-n n1 ... -n n5 -c 10n`: 50 workers)
 RUN_NODES = ("n1", "n2", "n3", "n4", "n5")
-RUN_OPS = 100_000            # 14a: append txns (200,000 history ops)
+#: 14a: append txns (100,000 history ops); 100,000 until phase 18 needed
+#: its room (the workload, `save_0` and 14b's decode about 25 s of it)
+RUN_OPS = 50_000
 RUN_WR_OPS = 50_000          # 14d
 RUN_TIME_LIMIT = 120
 RUN_CHILD_OPS = 2_000        # 14e
@@ -486,7 +530,8 @@ REGD_STALE_OPS = 120
 #: G-nonadjacent search takes 0.5 s or, on an interleaving without such
 #: a cycle, the whole budget: 34 s on one CPU core)
 RAFT_CONC = 10
-RAFT_TIME_LIMIT = 30
+#: 17a's workload seconds: 30 until phase 18 needed the room
+RAFT_TIME_LIMIT = 15
 #: 17a's clients are staggered as regd's are: unpaced, a lost quorum
 #: fails each txn at once, and 30 s made 37,141 txns (25,065 of them
 #: fails) whose session check took 13.8 s on the host CPU of an H100
@@ -509,6 +554,21 @@ SKEW_INTERVAL = 0.5
 #: or a restart every `REGD_KILL_INTERVAL` s, for `REGD_KILL_TIME_LIMIT` s
 REGD_KILL_INTERVAL = 4.0
 REGD_KILL_TIME_LIMIT = 20
+
+#: 18: telemetry and live checking on the card.  18a: the append demo on
+#: the sim cluster, 50 workers (`-n n1 ... -n n5 -c 10n`), `LIVE_TXNS` txns,
+#: telemetric, profiled, live-checked in process; 18b: its history with one
+#: G1c, fed in segments of `LIVE_SEG` ops; 18c: `BATCH_SESSIONS` sessions of
+#: `BATCH_TXNS` txns each, every `BATCH_EVERY`-th with a G1c, in one
+#: batched sweep
+LIVE_TXNS = 20_000
+LIVE_SEG = 256
+LIVE_MODELS = ("serializable",)   # the verifier service's default
+BATCH_SESSIONS = 64
+BATCH_TXNS = 2_000
+BATCH_EVERY = 8
+#: keep 18a's torch.profiler trace in chiprun_out/ up to this size
+PROFILE_KEEP_BYTES = 16 << 20
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -788,6 +848,190 @@ def log(*args):
     print(*args, flush=True)
 
 
+# ---- process and thread hygiene ---------------------------------------------
+#
+# Every process the run starts carries TAG_VAR in its environment: children
+# inherit `os.environ`, and so do daemons started under `setsid` through
+# `control/util.start_daemon` (`LoopbackSession.execute` passes the
+# environment on, and `env` adds to it).  `guarded` scans for the marker
+# after the phases and fails the run on any survivor or leftover thread.
+
+TAG_VAR = "JT_SMOKE_TAG"
+#: threads that must never outlive the run, whatever their daemon flag
+RUN_THREADS = ("telemetry-sampler", "verifier-maintenance", "live-check-")
+#: services, sessions, samplers and streams the phases opened and have not
+#: closed; `guarded` closes what is left, last opened first
+OPEN: list = []
+
+
+def opened(obj):
+    """Register `obj` (it has `close()`) for `guarded`'s cleanup; returns
+    it."""
+    OPEN.append(obj)
+    return obj
+
+
+def closed(obj) -> None:
+    """Close `obj` now and drop it from `OPEN`."""
+    if obj in OPEN:
+        OPEN.remove(obj)
+    obj.close()
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(
+                "utf-8", "replace").strip()
+    except OSError:
+        return ""
+
+
+def is_resource_tracker(pid: int) -> bool:
+    """`multiprocessing`'s resource tracker: it ends by itself on EOF
+    when the process that started it ends."""
+    return "multiprocessing.resource_tracker" in _cmdline(pid)
+
+
+def marked_pids(tag: str, skip=()) -> list[int]:
+    """Live processes of this uid whose environment carries
+    ``TAG_VAR=tag``, but those in `skip`."""
+    needle = f"{TAG_VAR}={tag}".encode()
+    uid = os.getuid()
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) in skip:
+            continue
+        try:
+            if os.stat(f"/proc/{name}").st_uid != uid:
+                continue
+            with open(f"/proc/{name}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue  # gone, or not ours to read
+        if needle in env:
+            out.append(int(name))
+    return out
+
+
+def _reap_zombies(pids) -> None:
+    """Collect the exit status of each of `pids` that is a finished child
+    of this process, so that none lingers as a zombie."""
+    for pid in pids:
+        try:
+            os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            pass  # not our child: its own parent (or init) collects it
+
+
+def reap(tag: str) -> list[tuple[int, str]]:
+    """Find every process the run left behind (marked with `tag`; this
+    process and the resource tracker aside), log each with its command
+    line, send it SIGTERM, wait up to 2 s, then SIGKILL what is left.
+    Returns the survivors found, as (pid, cmdline)."""
+    import signal
+
+    me = os.getpid()
+    found = [(p, _cmdline(p)) for p in marked_pids(tag, skip={me})
+             if not is_resource_tracker(p)]
+    for pid, cmd in found:
+        log(f"[end] left running: pid {pid}: {cmd}")
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    t_end = time.monotonic() + 2.0
+    pids = {p for p, _ in found}
+    while pids and time.monotonic() < t_end:
+        _reap_zombies(pids)
+        pids &= set(marked_pids(tag, skip={me}))
+        if pids:
+            time.sleep(0.05)
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    _reap_zombies(p for p, _ in found)
+    return found
+
+
+def leftover_threads() -> list[str]:
+    """Every live non-daemon thread but the main one, and every thread
+    of a kind that must never outlive a run (`RUN_THREADS`)."""
+    import threading
+
+    main = threading.main_thread()
+    return [t.name for t in threading.enumerate()
+            if t is not main and t.is_alive()
+            and (not t.daemon or t.name.startswith(RUN_THREADS))]
+
+
+def guarded(body) -> int:
+    """Run `body()` under the hygiene contract and print its last lines.
+
+    Marks the environment with a fresh ``TAG_VAR`` (every process the body
+    starts inherits it) and turns SIGTERM and SIGHUP into `SystemExit`, so
+    that every `finally` on the way out runs.  `body` returns the lines
+    to print last (the card's line, the kernels line, the `ok` line).
+    After it, whether it returned or raised: close what `OPEN` holds,
+    stop the CPU twins' pool, stop `multiprocessing`'s resource tracker,
+    kill every marked process still alive and list the threads left.  A
+    process or thread left behind fails the run: exit 1, and the lines
+    are not printed."""
+    import gc
+    import signal
+
+    global TWINS
+    tag = f"{os.getpid()}.{time.time_ns()}"
+    prev_tag = os.environ.get(TAG_VAR)
+    os.environ[TAG_VAR] = tag
+
+    def stop(signum, _frame):
+        raise SystemExit(128 + signum)
+
+    prev_handlers = {sig: signal.signal(sig, stop)
+                     for sig in (signal.SIGTERM, signal.SIGHUP)}
+    lines = None
+    try:
+        lines = body()
+    finally:
+        while OPEN:
+            obj = OPEN.pop()
+            try:
+                obj.close()
+            except Exception as e:  # noqa: BLE001 — close the others too
+                log(f"[end] closing {type(obj).__name__} failed: {e!r}")
+        if TWINS is not None:
+            TWINS.close()
+            TWINS = None
+        gc.collect()
+        from multiprocessing import resource_tracker
+
+        stop_tracker = getattr(resource_tracker._resource_tracker,
+                               "_stop", None)
+        if stop_tracker is not None:
+            stop_tracker()
+        procs = reap(tag)
+        threads = leftover_threads()
+        for name in threads:
+            log(f"[end] thread left: {name}")
+        for sig, h in prev_handlers.items():
+            signal.signal(sig, h)
+        if prev_tag is None:
+            os.environ.pop(TAG_VAR, None)
+        else:
+            os.environ[TAG_VAR] = prev_tag
+    log(f"[end] processes left: {len(procs)}, threads left: "
+        f"{len(threads)}")
+    if procs or threads:
+        log("chip_smoke: the run left processes or threads behind")
+        return 1
+    for line in lines:
+        log(line)
+    return 0
+
+
 def call_ms(fn, reps: int = 10) -> float:
     """Median device time of `fn()` over `reps` calls, CUDA events around
     each, after two warm-up calls: for the plain versions, which take
@@ -924,7 +1168,7 @@ class Twins:
     no result is unpickled in this process while a phase is timed.
     `later` keeps a comparison whose twin is still running, `finish`
     makes every kept comparison (their lines are logged there, after
-    phase 16) and `close` stops the workers and removes the files."""
+    phase 18) and `close` stops the workers and removes the files."""
 
     def __init__(self, n: int):
         import multiprocessing as mp
@@ -973,8 +1217,10 @@ class Twins:
     def close(self):
         import shutil
 
-        self.pool.terminate()
-        self.pool.join()
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -1116,6 +1362,47 @@ def suite_cpu(run_dir: str, workload: str, models, fused_min_txns: int):
     return checker_api.check_safe(checker, test, h)
 
 
+def batch_history(i: int):
+    """18c's history `i`: `BATCH_TXNS` txns from `synth.la_history`,
+    with a G1c (`inject_wr_cycle`) in every `BATCH_EVERY`-th."""
+    from jepsen_tpu_torch.workloads import synth
+
+    h = synth.la_history(n_txns=BATCH_TXNS, n_keys=50, concurrency=10,
+                         seed=100 + i)
+    if i % BATCH_EVERY == 0:
+        assert synth.inject_wr_cycle(h)
+    return h
+
+
+def sweep_cpu(i: int) -> str:
+    """18c's twin: `batch_history(i)` through a session of its own on the
+    CPU, swept alone; its verdict digest."""
+    from jepsen_tpu_torch.verifier import VerifierSession, verdict_digest
+
+    s = VerifierSession(f"solo{i}", LIVE_MODELS, device="cpu")
+    s.append_ops(list(batch_history(i)))
+    return verdict_digest(s.verdict())
+
+
+def live_cpu(run_dir: str) -> dict:
+    """18f's twin: the stored run at `run_dir` fed to a session on the
+    CPU in segments of `LIVE_SEG` ops, then sealed: its verdict, digest
+    and whether the seal's batch check agreed."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.verifier import VerifierSession
+
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    ops = [op.to_dict()
+           for op in store.load(run_dir)["history"].materialize()]
+    s = VerifierSession("twin", LIVE_MODELS, device="cpu")
+    for i in range(0, len(ops), LIVE_SEG):
+        s.append_ops(ops[i:i + LIVE_SEG])
+    sealed = s.seal()
+    v = sealed["verdict"]
+    return {"digest": sealed["digest"], "equal": sealed["equal"],
+            "valid?": v["valid?"], "anomaly-types": v["anomaly-types"]}
+
+
 def race_free(demo: str, r: dict) -> dict:
     """A lin-register dict without ``algorithm``, the Knossos race's
     winner, which is whichever leg answered first; any other dict as it
@@ -1155,6 +1442,12 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
+    return guarded(lambda: phases(opts))
+
+
+def phases(opts) -> list[str]:
+    """Phases 0-18 (see the module docstring); returns the lines to print
+    last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
     from jepsen_tpu_torch.ops import fill, kernels, scan
@@ -1500,6 +1793,10 @@ def main(argv=None) -> int:
     t17 = check_faults(dev, launches, twins)
     log(f"[17] phase 17 took {t17:.1f} s")
 
+    # ---- 18. telemetry and live checking on the card ----------------------
+    t18 = check_live(dev, launches, twins)
+    log(f"[18] phase 18 took {t18:.1f} s")
+
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
 
@@ -1516,12 +1813,9 @@ def main(argv=None) -> int:
              **seg_t),
     ]}
     log(f"[end] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
-    log(smi)
-    log(json.dumps(kernels_line))
-    log(json.dumps({"ok": True, "device": {
+    return [smi, json.dumps(kernels_line), json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
-    return 0
+        "count": torch.cuda.device_count()}})]
 
 
 def check_api(p, best: float, launches: dict, twins: Twins) -> None:
@@ -3584,6 +3878,290 @@ def check_faults(dev: torch.device, launches: dict, twins: Twins) -> float:
     return time.perf_counter() - t0
 
 
+def walk_spans(sp):
+    """`sp` (a span of a ``telemetry.json``) and every span below it."""
+    yield sp
+    for c in sp.get("children") or []:
+        yield from walk_spans(c)
+
+
+def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
+    """Phase 18: telemetry and live checking on the card (see the module
+    docstring).  The counters are set to 0 just before 18a's `core.run`
+    and 18b's seal and read just after each; the sums go into the main
+    path's `launches`.  18c's per-session twins and 18f's run in
+    `twins`.  Returns the seconds it took."""
+    import contextlib
+    import io
+    import shutil
+
+    from jepsen_tpu_torch import cli, core, store, telemetry
+    from jepsen_tpu_torch.__main__ import DEMOS
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.ops import cycle_sweep, fill, scan
+    from jepsen_tpu_torch.utils import profiling
+    from jepsen_tpu_torch.verifier import (VerifierService, VerifierSession,
+                                           scan_sessions, sweep,
+                                           verdict_digest)
+    from jepsen_tpu_torch.workloads import synth
+
+    t0 = time.perf_counter()
+    base = os.path.join(HERE, "build", "chip_smoke_live")
+    shutil.rmtree(base, ignore_errors=True)
+    prof_dir = os.path.join(OUT_DIR, "profile_18a")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    # 18c's histories are made in the workers while 18a-18b run, and
+    # then each one's twin: its own per-session sweep on the CPU
+    for i in range(BATCH_SESSIONS):
+        twins.submit(("18c-h", i), batch_history, i)
+    for i in range(BATCH_SESSIONS):
+        twins.submit(("18c", i), sweep_cpu, i)
+
+    def zero():
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+
+    def count():
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return n
+
+    try:
+        # ---- 18a. a telemetric, profiled, live-checked run -----------------
+        t = DEMOS["append"]({"nodes": list(RUN_NODES),
+                             "concurrency": 10 * len(RUN_NODES), "seed": 0})
+        t["generator"] = g.limit(LIVE_TXNS, t["generator"])
+        t.update({"store-dir": base, "telemetry": True,
+                  "profile-dir": prof_dir,
+                  "live-check": {"inproc": True}})
+        zero()
+        ta = time.perf_counter()
+        done = core.run(t)
+        ta = time.perf_counter() - ta
+        n = count()
+        res = done["results"]
+        lc = res["live-check"]
+        da = store.test_dir(done)
+        assert res["valid?"] is True and "error" not in res, res
+        assert lc["state"] == "ok", lc
+        assert lc["ops"] == len(done["history"]) == 2 * LIVE_TXNS, lc
+        assert (lc["valid?"], lc["anomaly-types"]) == \
+            (res["valid?"], res["anomaly-types"]), (lc, res)
+        assert lc["seal"] == {"equal": True, "digest": lc["digest"]}, lc
+        meta = dict(scan_sessions(base))[lc["session"]]
+        assert meta["state"] == "sealed" and meta["seal"]["equal"], meta
+        assert (meta["seal"]["valid?"], meta["seal"]["anomaly-types"]) == \
+            (res["valid?"], res["anomaly-types"]), meta
+        assert n["locf"] > 0, n
+        with open(os.path.join(da, "telemetry.json")) as f:
+            doc = json.load(f)
+        with open(os.path.join(da, "trace.json")) as f:
+            n_trace = len(json.load(f)["traceEvents"])
+        spans = [sp for r in doc["spans"] for sp in walk_spans(r)]
+        names = {sp["name"] for sp in spans}
+        (run,) = [r for r in doc["spans"] if r["name"] == "run"]
+        top = {c["name"]: c for c in run["children"]}
+        for want in ("workload", "store.save_0", "live-check.open",
+                     "live-check.finish"):
+            assert want in top, (want, sorted(top))
+        checks = [c for c in run["children"] if c["name"].startswith(
+            "check:")]
+        assert checks, sorted(top)
+        timed = 0
+        for chk in checks + [top["live-check.finish"]]:
+            for sp in walk_spans(chk):
+                dt = sp["attrs"].get("device_time_ns")
+                if dt is not None:
+                    assert 0 < dt <= sp["dur_ns"], sp
+                    timed += 1
+        assert any("device_time_ns" in sp["attrs"]
+                   for c in checks for sp in walk_spans(c)), checks
+        seals = [sp for sp in walk_spans(top["live-check.finish"])
+                 if sp["name"] == "verifier.seal-batch-check"]
+        assert len(seals) == 1, seals
+        n_sweeps = sum(sp["name"] == "verifier.sweep" for sp in spans)
+        ppath = os.path.join(prof_dir, profiling.TRACE_FILE)
+        p_bytes = os.path.getsize(ppath)
+        with open(ppath) as f:
+            kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"}
+        locf_syms = sorted(k for k in kernels if "locf_lookback" in k)
+        assert locf_syms, sorted(kernels)[:40]
+        if p_bytes > PROFILE_KEEP_BYTES:
+            os.remove(ppath)
+        wl = top["workload"]["dur_ns"] / 1e9
+        log(f"[18a] the append demo on the sim cluster, "
+            f"{len(RUN_NODES)} nodes, {10 * len(RUN_NODES)} workers, "
+            f"{LIVE_TXNS} txns, telemetry on, torch.profiler on, live "
+            f"check in process: {ta:.2f} s; workload {wl:.2f} s "
+            f"({LIVE_TXNS / wl:.1f} txns/s), save_0 "
+            f"{top['store.save_0']['dur_ns'] / 1e9:.2f} s, check "
+            f"{checks[0]['dur_ns'] / 1e9:.4f} s, live-check.finish "
+            f"{top['live-check.finish']['dur_ns'] / 1e9:.4f} s (seal "
+            f"{seals[0]['dur_ns'] / 1e9:.4f} s); valid? {res['valid?']}; "
+            f"the live session {lc['ops']} ops, sealed equal, digest "
+            f"{lc['digest']}; {len(spans)} spans, {n_sweeps} "
+            f"verifier.sweep spans, {timed} spans with device_time_ns, "
+            f"{n_trace} trace.json events; profiler trace {p_bytes} B "
+            f"({'kept' if p_bytes <= PROFILE_KEEP_BYTES else 'removed'}), "
+            f"{len(kernels)} kernel names, LOCF as {locf_syms[0]!r}; "
+            f"launches {n}")
+        twins.submit("18f-a", live_cpu, da)
+
+        # ---- 18b. one G1c, fed in segments through the service API -------
+        h = done["history"]
+        lens = [len(op.value) if isinstance(op.value, list) else 0
+                for op in h]
+        assert synth.inject_wr_cycle(h)
+        changed = [i for i, op in enumerate(h) if isinstance(op.value, list)
+                   and len(op.value) != lens[i]]
+        assert len(changed) == 2, changed
+        closing = max(changed) // LIVE_SEG
+        tb = {"name": "live-g1c", "store-dir": base,
+              "start-time": time.time(), "history": h}
+        store.save_0(tb)
+        db_ = store.test_dir(tb)
+        twins.submit("18f-b", live_cpu, db_)
+        lines = [json.dumps(op.to_dict()).encode() + b"\n" for op in h]
+        svc = opened(VerifierService(base, device=dev))
+        tg = time.perf_counter()
+        cur, first_bad = 0, None
+        for k in range(0, len(lines), LIVE_SEG):
+            seg = b"".join(lines[k:k + LIVE_SEG])
+            code, r = svc.ingest("g1c", seg, cursor=cur)
+            assert code == 200 and r["cursor"] == cur + len(seg), (code, r)
+            cur = r["cursor"]
+            code, v = svc.verdict("g1c")
+            assert code == 200, v
+            if v["valid?"] is False and first_bad is None:
+                first_bad = (k // LIVE_SEG, v["anomaly-types"], v["new"])
+        tg = time.perf_counter() - tg
+        assert first_bad is not None and first_bad[0] == closing, \
+            (first_bad, closing)
+        assert "G1c" in first_bad[1] and "G1c" in first_bad[2], first_bad
+        zero()
+        ts = time.perf_counter()
+        code, sealed = svc.seal("g1c")
+        ts = time.perf_counter() - ts
+        n = count()
+        assert code == 200 and sealed["equal"] is True, sealed
+        assert "G1c" in sealed["verdict"]["anomaly-types"], sealed
+        assert sealed["verdict"]["anomaly-types"] == \
+            sealed["incremental"]["anomaly-types"], sealed
+        assert n["seg_or"] > 0, n
+        digest_b = sealed["digest"]
+        log(f"[18b] 18a's history with one G1c (ops {changed}), "
+            f"{len(lines)} ops in {len(range(0, len(lines), LIVE_SEG))} "
+            f"segments of {LIVE_SEG} through VerifierService.ingest and "
+            f"a rolling verdict after each: {tg:.2f} s; invalid from "
+            f"segment {first_bad[0]} (the one with op {max(changed)}), "
+            f"{first_bad[1]}; seal {ts:.4f} s: "
+            f"{sealed['verdict']['anomaly-types']}, equal to the batch "
+            f"check (list_append.check on the card); launches {n}")
+
+        # ---- 18c. many sessions, one batched dispatch ----------------------
+        class Live:
+            def __init__(self, session):
+                import threading
+
+                self.lock = threading.RLock()
+                self.dead = False
+                self.state = "open"
+                self.session = session
+
+        tc = time.perf_counter()
+        lives = []
+        for i in range(BATCH_SESSIONS):
+            s = VerifierSession(f"b{i}", LIVE_MODELS, device=dev)
+            s.append_ops(list(twins.get(("18c-h", i))[0]))
+            lives.append(Live(s))
+        t_ingest = time.perf_counter() - tc
+        dispatches = []
+        real = cycle_sweep.detect_cycles
+
+        def counted_sweep(*a, **kw):
+            dispatches.append(1)
+            return real(*a, **kw)
+
+        coll = telemetry.activate()
+        cycle_sweep.detect_cycles = counted_sweep
+        try:
+            tc = time.perf_counter()
+            stats = sweep.batched_sweep(lives, device=dev)
+            tc = time.perf_counter() - tc
+        finally:
+            cycle_sweep.detect_cycles = real
+            telemetry.deactivate(coll)
+        (bspan,) = [r for r in coll.roots if r.name == "verifier.sweep"
+                    and r.attrs.get("batched")]
+        assert stats["dispatched"] == 1 and len(dispatches) == 1, \
+            (stats, dispatches)
+        assert stats["dirty"] == BATCH_SESSIONS, stats
+        got = [verdict_digest(x.session.verdict()) for x in lives]
+        want = [twins.get(("18c", i))[0] for i in range(BATCH_SESSIONS)]
+        assert got == want, [i for i, (a, b) in enumerate(zip(got, want))
+                             if a != b]
+        bad = [i for i, x in enumerate(lives)
+               if x.session.verdict(sweep=False)["valid?"] is False]
+        assert bad == list(range(0, BATCH_SESSIONS, BATCH_EVERY)), bad
+        a_ = bspan.attrs
+        log(f"[18c] batched_sweep over {BATCH_SESSIONS} sessions of "
+            f"{BATCH_TXNS} txns ({len(bad)} with a G1c; read from the "
+            f"workers and ingested in {t_ingest:.2f} s): one detect_cycles dispatch on the card "
+            f"over {a_['regions']} regions, {a_['nodes']} nodes, "
+            f"{a_['edges']} edges: {bspan.duration_ns / 1e9:.4f} s, "
+            f"device_time_ns {a_.get('device_time_ns')}; the whole pass "
+            f"{tc:.4f} s, stats {stats}; every verdict's digest equal to "
+            f"its session's own sweep on the CPU in a worker")
+
+        # ---- 18d. reopen 18b's service, replay to the same digest ---------
+        closed(svc)
+        td = time.perf_counter()
+        svc = opened(VerifierService(base, device=dev))
+        code, v = svc.verdict("g1c")
+        td = time.perf_counter() - td
+        assert code == 200 and v["digest"] == digest_b, (v, digest_b)
+        assert {x["session"]: x["state"] for x in svc.sessions()}[
+            "g1c"] == "sealed", svc.sessions()
+        closed(svc)
+        log(f"[18d] 18b's service closed and reopened over its store: "
+            f"journal replayed, digest {v['digest']} identical, in "
+            f"{td:.2f} s")
+
+        # ---- 18e. trace and tail of 18a's run through the CLI -------------
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_trace = cli.run(demo_suite(), ["trace", da, "--top", "10"])
+            rc_tail = cli.run(demo_suite(), ["tail", da])
+        text = out.getvalue()
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "18e_trace_tail.txt"), "w") as f:
+            f.write(text)
+        assert rc_trace == 0 and rc_tail == 0, (rc_trace, rc_tail)
+        assert "top 10 spans by self time" in text and \
+            "run ended cleanly" in text, text[-2000:]
+        log(f"[18e] trace DIR --top 10 and tail DIR of 18a's run through "
+            f"cli.run: exit 0 and 0, {len(text.splitlines())} lines "
+            f"(chiprun_out/18e_trace_tail.txt)")
+
+        # ---- 18f. card == CPU ----------------------------------------------
+        for key, d, want_d in (("18f-a", da, lc["digest"]),
+                               ("18f-b", db_, digest_b)):
+            got, t_cpu, t_wait = twins.get(key)
+            assert got["digest"] == want_d and got["equal"], (key, got)
+            log(f"[18f] {os.path.basename(d)}: the stored history through "
+                f"a session on the CPU in a worker, segments of "
+                f"{LIVE_SEG}, sealed: digest {got['digest']} and "
+                f"{got['anomaly-types']} equal to the card's, in "
+                f"{t_cpu:.2f} s (waited {t_wait:.2f} s)")
+        assert got["anomaly-types"] == sealed["verdict"]["anomaly-types"]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
 def suite_stages():
     """The `Split` stages of a suite's run (16b-16c, 17): the
     workload, `save_0`, the check and `save_1`, and the check's parts on
@@ -4360,9 +4938,4 @@ def profile(phase: int, what: str, fname: str, fn) -> dict[str, int]:
 
 
 if __name__ == "__main__":
-    try:
-        code = main()
-    finally:
-        if TWINS is not None:
-            TWINS.close()
-    sys.exit(code)
+    sys.exit(main())

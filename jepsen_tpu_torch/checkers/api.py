@@ -20,10 +20,12 @@ timeline and clock checkers write there).
 from __future__ import annotations
 
 import re
+import time
 import traceback
 from collections import Counter as _Counter
 from typing import Any, Callable, Dict, Iterable, Optional
 
+from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.backend import DeviceLike
 from jepsen_tpu_torch.history.ops import FAIL, INFO, INVOKE, OK, History, Op
 from jepsen_tpu_torch.resilience import DEADLINE_ERROR, Deadline, DeadlineExceeded
@@ -72,8 +74,9 @@ def check_safe(chk: Checker, test: dict, history: History,
     ``{"valid?": "unknown", "error": "deadline-exceeded"}`` rather
     than a crash dump.  Composed checkers share ONE deadline: the
     outermost `check_safe` creates it, the nested calls find it
-    already present in opts.  The JAX package's telemetry span and
-    counters are not carried over."""
+    already present in opts.  Telemetric runs get one ``check:<name>``
+    span per (composed) checker, carrying the history length, verdict,
+    and throughput."""
     try:
         name = chk.name()
     except Exception:  # noqa: BLE001 — a broken name() must not mask check()
@@ -81,14 +84,44 @@ def check_safe(chk: Checker, test: dict, history: History,
     dl = Deadline.resolve(opts, test)
     if dl is not None:
         opts = dict(opts or {}, deadline=dl)
-    try:
-        return chk.check(test, history, opts)
-    except DeadlineExceeded:
+
+    def deadline_res() -> Dict[str, Any]:
+        telemetry.registry().counter("checker-deadline-exceeded",
+                                     checker=name).inc()
         return {"valid?": "unknown", "checker": name,
                 "error": DEADLINE_ERROR}
-    except Exception:
-        return {"valid?": "unknown", "checker": name,
-                "error": traceback.format_exc()}
+
+    tel = telemetry.active()
+    if not tel.enabled:
+        try:
+            return chk.check(test, history, opts)
+        except DeadlineExceeded:
+            return deadline_res()
+        except Exception:
+            return {"valid?": "unknown", "checker": name,
+                    "error": traceback.format_exc()}
+    with tel.span(f"check:{name}", checker=name) as sp:
+        try:
+            n = len(history)
+        except TypeError:
+            n = None
+        t0 = time.perf_counter()
+        try:
+            res = chk.check(test, history, opts)
+        except DeadlineExceeded:
+            sp.set_attr(ops=n, valid="unknown", error=DEADLINE_ERROR)
+            return deadline_res()
+        except Exception:
+            sp.set_attr(ops=n, valid="unknown", crashed=True)
+            return {"valid?": "unknown", "checker": name,
+                    "error": traceback.format_exc()}
+        dt = time.perf_counter() - t0
+        sp.set_attr(ops=n, valid=res.get("valid?")
+                    if isinstance(res, dict) else None)
+        if n and dt > 0:
+            telemetry.registry().gauge(
+                "checker-ops-per-s", checker=name).set(round(n / dt, 1))
+        return res
 
 
 def _merge_valid(vs: Iterable[Any]) -> Any:

@@ -406,6 +406,13 @@ def check(p, n_keys: int = None, max_k: int = 128, max_rounds: int = 64,
     n_keys = h.n_keys if n_keys is None else n_keys
     rw_cap = h.mop_txn.shape[0]
 
+    # one phase span over the whole fused check incl. grow-retries
+    from jepsen_tpu_torch import telemetry
+
+    ph = telemetry.phases()
+    ph.start("elle.rw-core-check", device=True,
+             t_pad=h.txn_type.shape[0])
+
     while True:
         if deadline is not None:
             deadline.check("elle.rw-core-check")
@@ -435,6 +442,7 @@ def check(p, n_keys: int = None, max_k: int = 128, max_rounds: int = 64,
             continue
         break
 
+    ph.end()
     nc = len(COUNT_NAMES_RW)
     counts = {n: int(row[i]) for i, n in enumerate(COUNT_NAMES_RW)}
     cycles = [bool(x) for x in row[nc:-1]]

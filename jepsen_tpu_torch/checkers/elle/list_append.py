@@ -24,8 +24,9 @@ inside a kernel that surfaces at the next copy, an out-of-memory that
 outlives its retries, a missing card) is raised as it is.  Only a synthetic
 fault of a `resilience.FaultPlan` degrades to the oracle, stamped
 ``"degraded": "host-fallback"``: the drill that exercises the degradation
-tail.  The JAX package's telemetry spans, compile cache and multi-device
-sharding are not carried over.
+tail.  The phase spans and the staged-bytes counter are the JAX
+package's; its compile cache and multi-device sharding are not carried
+over.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import backend, resilience
+from jepsen_tpu_torch import backend, resilience, telemetry
 from jepsen_tpu_torch.checkers.elle import consistency, coverage, oracle
 from jepsen_tpu_torch.checkers.elle.device_infer import infer, pad_packed
 from jepsen_tpu_torch.checkers.elle.explain import la_explainer
@@ -65,6 +66,10 @@ from jepsen_tpu_torch.ops.cycle_sweep import (
 #: edge families of `infer`, in the order they are concatenated
 EDGE_FAMILIES = ("ww", "wr", "rw", "tb", "bt")
 FAMILY_RELS = (REL_WW, REL_WR, REL_RW, REL_REALTIME, REL_REALTIME)
+
+# first-call-in-process tracking of `infer`: the "warm" attr of its
+# telemetry span (the JAX package's proxy for compile vs execute)
+_WARM: Dict[str, bool] = {}
 
 
 class SweepNotConverged(RuntimeError):
@@ -130,10 +135,14 @@ def _check_device(history, consistency_models, anomalies, max_reported,
         return resilience.device_call(site, fn, policy=policy,
                                       deadline=deadline, plan=plan)
 
+    # phase spans matching the host oracle's stage names (device=True
+    # distinguishes them in one trace)
+    ph = telemetry.phases()
     ir = history if isinstance(history, HistoryIR) else None
     if isinstance(history, PackedTxns):
         p = history
     else:
+        ph.start("elle.pack", device=True)
         p = (ir.packed("list-append") if ir is not None
              else pack_txns(history, "list-append"))
     if ir is not None and ir.packed_only:
@@ -141,14 +150,25 @@ def _check_device(history, consistency_models, anomalies, max_reported,
         # coverage) must see the bare PackedTxns degradation semantics
         history = p
     if p.n_txns == 0 or not (p.txn_type == TXN_OK).any():
+        ph.end()
         return {"valid?": "unknown", "anomaly-types": [], "anomalies": {},
                 "not": [], "also-not": []}
 
     poll("elle.infer")
+    ph.start("elle.infer", device=True, txns=p.n_txns,
+             warm=_WARM.get("infer", False))
+    _WARM["infer"] = True
     # the IR caches the padded layout per device: repeat checks of one
     # history skip the pad, and a transient retry of infer never pads again
     h = ir.padded("list-append", dev) if ir is not None \
         else pad_packed(p, device=dev)
+    if telemetry.enabled():
+        telemetry.registry().counter("device-bytes-staged").inc(
+            sum(a.numel() * a.element_size() for a in (
+                h.txn_type, h.txn_process, h.txn_invoke_pos,
+                h.txn_complete_pos, h.txn_mask, h.mop_txn, h.mop_kind,
+                h.mop_key, h.mop_val, h.mop_rd_start, h.mop_rd_len,
+                h.mop_mask, h.rd_elems, h.rd_elem_mask)))
     out = guarded("elle.infer", lambda: infer(h, p.n_keys))
 
     found: Dict[str, List[Any]] = {}
@@ -166,6 +186,7 @@ def _check_device(history, consistency_models, anomalies, max_reported,
     want |= {"duplicate-appends", "duplicate-elements", "incompatible-order"}
 
     # ---- cycle anomalies: group specs by rel projection -------------------
+    ph.start("elle.graph-build", device=True)
     specs = [(name, CYCLE_ANOMALY_SPECS[name]) for name in SPEC_ORDER
              if name in want]
     projections: Dict[frozenset, List[Tuple[str, CycleSpec]]] = {}
@@ -193,6 +214,8 @@ def _check_device(history, consistency_models, anomalies, max_reported,
 
     host = None        # (src, dst, EdgeList) on the host, at a first cycle
     explainer = None   # lazily built per-edge Explainer
+    ph.start("elle.cycle-sweep", device=True,
+             projections=len(projections))
     for rels, group in projections.items():
         # deadline poll per projection: the sweep fixpoint retries
         # (grow max_k/max_rounds) can stretch a pathological history —
@@ -201,6 +224,7 @@ def _check_device(history, consistency_models, anomalies, max_reported,
             try:
                 deadline.check("elle.cycle-sweep")
             except resilience.DeadlineExceeded:
+                ph.end()
                 return resilience.deadline_result(
                     **{"anomaly-types": sorted(found),
                        "anomalies": found, "not": [], "also-not": [],
@@ -250,11 +274,13 @@ def _check_device(history, consistency_models, anomalies, max_reported,
     # session-guarantee tokens run the dedicated per-process checker (see
     # coverage.py for the PackedTxns degradation rule)
     poll("elle.sessions")
+    ph.start("elle.sessions", device=False)
     sess_found, sess_checked = coverage.run_la_sessions(
         history, want, isinstance(history, PackedTxns),
         max_reported=max_reported)
     for k, v in sess_found.items():
         found.setdefault(k, []).extend(v)
+    ph.end()
 
     # shared verdict tail: the device pipeline reached this point only
     # with committed txns (the no-ok case returned unknown above)

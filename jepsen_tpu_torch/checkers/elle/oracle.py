@@ -18,7 +18,9 @@ Implements:
    BFS (elle.txn/cycles! analogue);
  - consistency-model verdicts via the lattice.
 
-The JAX package's telemetry phase spans are not carried over.
+Telemetric runs get the JAX package's phase spans (``elle.pack``,
+``elle.infer``, ``elle.graph-build``, ``elle.sessions``,
+``elle.cycle-sweep``, all ``device=False``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.resilience import DeadlineExceeded, deadline_result
 from jepsen_tpu_torch.checkers.elle import consistency
 from jepsen_tpu_torch.checkers.elle.graph import (
@@ -133,17 +136,24 @@ def check(history, consistency_models: Sequence[str] = ("serializable",),
     carrying whatever anomalies the interrupted stages already found,
     instead of running unbounded — the host oracle honors the same
     budget contract as the device pipelines it backs up."""
+    # sequential phase spans (telemetry, no-op when disabled): the same
+    # infer / graph-build / cycle-sweep stage names as the device
+    # pipeline, so host-vs-device time is comparable in one trace
+    ph = telemetry.phases()
     if isinstance(history, PackedTxns):
         p = history
     else:
+        ph.start("elle.pack", device=False)
         p = pack_txns(history, "list-append")
+    ph.start("elle.infer", device=False, txns=p.n_txns)
     txns = _unpack(p)
     found: Dict[str, List[Any]] = {}
     try:
         return _check_body(history, p, txns, found, consistency_models,
                            anomalies, max_cycle_steps, max_reported,
-                           deadline)
+                           deadline, ph)
     except DeadlineExceeded as e:
+        ph.end()
         return deadline_result(
             checker="elle-oracle",
             **{"anomaly-types": sorted(found), "anomalies": found,
@@ -153,7 +163,7 @@ def check(history, consistency_models: Sequence[str] = ("serializable",),
 
 def _check_body(history, p: PackedTxns, txns, found,
                 consistency_models, anomalies, max_cycle_steps,
-                max_reported, deadline) -> Dict[str, Any]:
+                max_reported, deadline, ph) -> Dict[str, Any]:
     # cooperative budget: cheap monotonic poll every POLL_EVERY
     # iterations of the hot loops, and once per stage boundary
     POLL_EVERY = 256
@@ -283,6 +293,7 @@ def _check_body(history, p: PackedTxns, txns, found,
 
     # -- dependency edges ---------------------------------------------------
     poll("elle.graph-build")
+    ph.start("elle.graph-build", device=False)
 
     def graph_txn(i: int) -> bool:
         return txns[i].type in (TXN_OK, TXN_INFO)
@@ -356,6 +367,7 @@ def _check_body(history, p: PackedTxns, txns, found,
     from jepsen_tpu_torch.checkers.elle import coverage
 
     poll("elle.sessions")
+    ph.start("elle.sessions", device=False)
     sess_found, sess_checked = coverage.run_la_sessions(
         history, want, isinstance(history, PackedTxns),
         max_reported=max_reported)
@@ -365,6 +377,7 @@ def _check_body(history, p: PackedTxns, txns, found,
     cycle_specs = [s for s in SPEC_ORDER
                    if s in want and s in CYCLE_ANOMALY_SPECS]
 
+    ph.start("elle.cycle-sweep", device=False, specs=len(cycle_specs))
     for name in cycle_specs:
         # per-spec poll: the SCC + rel-constrained search is the
         # unbounded part of the host path — the budget must bite here
@@ -382,6 +395,7 @@ def _check_body(history, p: PackedTxns, txns, found,
                               "scc-size": int(len(scc))})
                 break  # one witness per spec, like the reference's default
 
+    ph.end()
     return boundary_verdict(
         found, consistency_models, want,
         has_ok=any(t.type == TXN_OK for t in txns),

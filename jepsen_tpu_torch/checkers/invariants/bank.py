@@ -142,24 +142,31 @@ def check(history, test: Optional[dict] = None, *,
     retried and deadline-polled; a synthetic fault of `plan` degrades to
     the host twin with the standard stamp.  ``use_device=False`` IS the
     host twin — the two must agree verdict-for-verdict."""
-    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch import resilience, telemetry
     from jepsen_tpu_torch.history.ir import HistoryIR
 
     dev = backend.resolve(device) if use_device else None
+    ph = telemetry.phases()
     pb = history if isinstance(history, PackedBank) else None
     if pb is None:
         accounts = ((test or {}).get("accounts") or {}).keys() or None
+        ph.start("invariants.pack", device=False)
         pb = (history.bank(accounts)
               if isinstance(history, HistoryIR)
               else packed_mod.pack_bank(history, accounts=accounts))
     t = resolve_total(test, pb, total)
     if not pb.n_reads or t is None:
+        ph.end()
         return {"valid?": "unknown", "read-count": pb.n_reads,
                 "anomaly-types": [], "anomalies": {}, "bad-reads": []}
     if deadline is not None:
         deadline.check(SITE)
     if not use_device:
-        return host_verdict(pb, t, negative_balances_ok, max_reported)
+        ph.start("invariants.check", device=False, reads=pb.n_reads)
+        res = host_verdict(pb, t, negative_balances_ok, max_reported)
+        ph.end()
+        return res
+    ph.start("invariants.check", device=True, reads=pb.n_reads)
     try:
         (sums, wrong, neg), degraded = resilience.with_fallback(
             SITE,
@@ -168,8 +175,10 @@ def check(history, test: Optional[dict] = None, *,
             lambda: _reduce_host(pb.balances, t, negative_balances_ok),
             deadline=deadline, plan=plan, policy=policy)
     except resilience.DeadlineExceeded:
+        ph.end()
         return resilience.deadline_result(checker="bank")
     res = _render(pb, t, sums, wrong, neg, max_reported)
     if degraded:
         res["degraded"] = degraded
+    ph.end()
     return res

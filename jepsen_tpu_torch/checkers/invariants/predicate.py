@@ -247,18 +247,21 @@ def check(history, consistency_models: Sequence[str] = (
     names the CPU; no card raises `backend.NoDeviceError`).
     ``use_device=False`` is the host oracle twin: the same passes on
     numpy and host Tarjan cycle search."""
-    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch import resilience, telemetry
     from jepsen_tpu_torch.checkers.elle.explain import rw_explainer
     from jepsen_tpu_torch.history.ir import HistoryIR
 
     dev = backend.resolve(device) if use_device else None
+    ph = telemetry.phases()
     ir = history if isinstance(history, HistoryIR) else None
     if isinstance(history, PackedTxns):
         p = history
     else:
+        ph.start("invariants.pack", device=False)
         p = ir.packed("rw-register") if ir is not None \
             else packed_mod.pack_rw(history)
     if p.n_txns == 0 or not (p.txn_type == TXN_OK).any():
+        ph.end()
         return {"valid?": "unknown", "anomaly-types": [], "anomalies": {},
                 "not": [], "also-not": [], "read-count": 0}
 
@@ -266,12 +269,14 @@ def check(history, consistency_models: Sequence[str] = (
     degraded = None
     n_reads = 0
     try:
+        ph.start("invariants.long-fork", device=use_device, txns=p.n_txns)
         forks, n_reads, degraded = long_forks(
             p, use_device=use_device, max_reported=max_reported,
             deadline=deadline, plan=plan, policy=policy, device=dev)
         if forks:
             found[LONG_FORK] = forks
 
+        ph.start("invariants.infer", device=False)
         # the IR shares ONE RwInference between the predicate and
         # session checkers of a composed check (docs/IR.md)
         inf = ir.rw_inference() if ir is not None \
@@ -287,6 +292,7 @@ def check(history, consistency_models: Sequence[str] = (
         want |= set(anomalies) | set(CYCLE_WANT)
         if deadline is not None:
             deadline.check(SITE)
+        ph.start("invariants.cycle-sweep", device=use_device)
         expl = rw_explainer(p, inf.writer, inf.v_src, inf.v_dst,
                             ext_read_txn=inf.ext_read_txn,
                             ext_read_val=inf.ext_read_val)
@@ -296,9 +302,11 @@ def check(history, consistency_models: Sequence[str] = (
             explainer=expl, n_txns=p.n_txns,
             orig_index=p.txn_orig_index, device=dev))
     except resilience.DeadlineExceeded:
+        ph.end()
         return resilience.deadline_result(
             checker="predicate",
             **{"anomaly-types": sorted(found), "anomalies": found})
+    ph.end()
 
     anomaly_types = sorted(found)
     boundary = consistency.friendly_boundary(anomaly_types)

@@ -419,10 +419,11 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
     card raises `backend.NoDeviceError`).  Result shape matches the elle
     checkers; anomalies use the lattice's ``<guarantee>-violation``
     tokens."""
-    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch import resilience, telemetry
     from jepsen_tpu_torch.history.ir import HistoryIR
 
     dev = backend.resolve(device) if use_device else None
+    ph = telemetry.phases()
     ir = history if isinstance(history, HistoryIR) else None
     op_level = None if (isinstance(history, PackedTxns)
                         or (ir is not None and ir.packed_only)) \
@@ -430,12 +431,15 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
     if op_level is None:
         p = ir.packed("rw-register") if ir is not None else history
     else:
+        ph.start("invariants.pack", device=False)
         p = ir.packed("rw-register") if ir is not None \
             else packed_mod.pack_rw(history)
     if p.n_txns == 0 or not (p.txn_type == TXN_OK).any():
+        ph.end()
         return {"valid?": "unknown", "anomaly-types": [], "anomalies": {},
                 "not": [], "also-not": []}
 
+    ph.start("invariants.infer", device=False, txns=p.n_txns)
     inf = ir.rw_inference() if ir is not None else packed_mod.infer_rw(p)
     ev = _session_events(p, inf)
     want = set(guarantees)
@@ -445,6 +449,7 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
         # DAG walker can compare versions soundly (op-level input
         # required).  Cross-key writer sessions do not route here: the
         # vectorized obligation pass below covers them
+        ph.end()
         return _walker_fallback(op_level, want)
 
     proc, key, is_write, rank, ev_txn = ev
@@ -454,6 +459,7 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
                               (key[1:] != key[:-1])])
         seg = np.cumsum(new) - 1
     run = _viol_masks(seg, is_write, rank)
+    ph.start("invariants.check", device=use_device, events=len(proc))
     degraded = None
     try:
         if use_device and len(proc):
@@ -463,7 +469,9 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
         else:
             masks = run() if len(proc) else (np.zeros(0, bool),) * 4
     except resilience.DeadlineExceeded:
+        ph.end()
         return resilience.deadline_result(checker="session")
+    ph.end()
 
     found: Dict[str, List[dict]] = {}
     orig = p.txn_orig_index
@@ -486,7 +494,9 @@ def check(history, guarantees: Sequence[str] = GUARANTEES,
     # cross-key obligation propagation (vectorized; walker-equivalent
     # on chain-shaped keys — differential-pinned in test_invariants)
     if "writes-follow-reads" in want or "monotonic-writes" in want:
+        ph.start("invariants.cross-key", device=False)
         cross = _cross_key_violations(p, inf, want, max_reported)
+        ph.end()
         for nm, items in cross.items():
             lst = found.setdefault(nm, [])
             lst.extend(items[:max(0, max_reported - len(lst))])

@@ -17,7 +17,8 @@ verdict to the host legs.  The port keeps that only for a synthetic
 other error of the device leg (`backend.NoDeviceError`, a CUDA error or an
 out-of-memory error that outlived `device_call`'s retries) ends the race
 and is raised.  Host legs that crash stay losers, as in the JAX package.
-The JAX package's telemetry spans are not carried over.
+Telemetric runs get the JAX package's spans: ``knossos.analysis`` with
+``knossos.prep``, and one ``knossos.<leg>`` root per racing thread.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import threading
 import time
 from typing import Any, Dict
 
-from jepsen_tpu_torch import backend
+from jepsen_tpu_torch import backend, telemetry
 from jepsen_tpu_torch.checkers.knossos import device_wgl, linear, wgl
 from jepsen_tpu_torch.checkers.knossos.prep import prepare
 from jepsen_tpu_torch.checkers.knossos.search import ChildSearch, stamp_abort
@@ -78,7 +79,12 @@ def _race(contestants, ops, model, ctl, _also_accepts=(),
             # here would silently kill a leg instead of racing it
             params = inspect.signature(fn).parameters
             leg_kw = {k: v for k, v in kw.items() if k in params}
-            res = fn(list(ops), model, ctl=ctl, **leg_kw)
+            # each leg runs on its own thread, so this span is a root
+            # on its own timeline row; device=True marks the card's leg
+            with telemetry.span(f"knossos.{name}", ops=len(ops),
+                                device=(fn is device_wgl.check)) as sp:
+                res = fn(list(ops), model, ctl=ctl, **leg_kw)
+                sp.set_attr(valid=res.get("valid?"))
             q.put((name, res, None))
         except Exception as e:  # noqa: BLE001 — sorted out by the waiter
             logger.warning("%s contestant crashed", name, exc_info=True)
@@ -205,10 +211,17 @@ def analysis(history: History, model: Model,
     """
     from jepsen_tpu_torch.history.ir import HistoryIR
 
-    ops = history.lin_ops() if isinstance(history, HistoryIR) \
-        else prepare(history)
-    return _dispatch(ops, model, algorithm, deadline_s, deadline, kw,
-                     device)
+    with telemetry.span("knossos.analysis", algorithm=algorithm) as sp:
+        with telemetry.span("knossos.prep"):
+            ops = history.lin_ops() if isinstance(history, HistoryIR) \
+                else prepare(history)
+        sp.set_attr(ops=len(ops))
+        res = _dispatch(ops, model, algorithm, deadline_s, deadline, kw,
+                        device)
+        sp.set_attr(valid=res.get("valid?"),
+                    algorithm_used=res.get("algorithm", algorithm),
+                    error=res.get("error"))
+        return res
 
 
 def _dispatch(ops, model: Model, algorithm: str, deadline_s, deadline,

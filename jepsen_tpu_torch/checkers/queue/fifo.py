@@ -25,8 +25,8 @@ Device path behind ``resilience.with_fallback(site="queue.check")``:
 the caller names the CPU), through `kafka._TorchXP`, with the running
 max as `torch.cummax` on int64 (JAX's `lax.cummax`, a plain XLA op: no
 Pallas kernel); host path the same text of the arithmetic in numpy.
-There is no bucket padding (the port has no compile cache) and no
-telemetry.  JAX sends a history to the host when the segment offsets
+There is no bucket padding (the port has no compile cache); the phase
+spans and the anomaly counter are the JAX package's.  JAX sends a history to the host when the segment offsets
 ``seg * big`` could pass int32 (``_big(pf) * (len(q_val) + 2) < 2 ** 31``);
 the port's bound is int64's, ``< 2 ** 62``.  Result keeps every legacy
 `TotalQueueChecker` key (lost / lost-count / unexpected /
@@ -41,7 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import backend
+from jepsen_tpu_torch import backend, telemetry
 from jepsen_tpu_torch.checkers import api as checker_api
 from jepsen_tpu_torch.checkers.queue import packed as packed_mod
 from jepsen_tpu_torch.checkers.queue.kafka import _i64, _TorchXP
@@ -174,6 +174,9 @@ def _render(pf: PackedFifo, reduced, fifo: bool,
         "enqueue-count": pf.enqueue_count,
         "dequeue-count": pf.dequeue_count,
     }
+    for name, entries in found.items():
+        telemetry.registry().counter(
+            "queue-anomalies-found", anomaly=name).inc(len(entries))
     return out
 
 
@@ -197,12 +200,15 @@ def check(history, test: Optional[dict] = None, *,
     from jepsen_tpu_torch.history.ir import HistoryIR
 
     dev = backend.resolve(device) if use_device else None
+    ph = telemetry.phases()
     pf = history if isinstance(history, PackedFifo) else None
     if pf is None:
+        ph.start("queue.pack", device=False)
         pf = (history.queue("fifo")
               if isinstance(history, HistoryIR)
               else packed_mod.pack_fifo(history))
     if pf.empty:
+        ph.end()
         return {"valid?": "unknown"}
     if deadline is not None:
         deadline.check(SITE)
@@ -210,7 +216,13 @@ def check(history, test: Optional[dict] = None, *,
     use_device = use_device and \
         _big(pf) * (len(pf.q_val) + 2) < DEVICE_BOUND
     if not use_device:
-        return host_verdict(pf, fifo, max_reported)
+        ph.start("queue.check", device=False,
+                 values=len(pf.values), dequeues=pf.dequeue_count)
+        res = host_verdict(pf, fifo, max_reported)
+        ph.end()
+        return res
+    ph.start("queue.check", device=True,
+             values=len(pf.values), dequeues=pf.dequeue_count)
     try:
         reduced, degraded = resilience.with_fallback(
             SITE,
@@ -218,10 +230,12 @@ def check(history, test: Optional[dict] = None, *,
             lambda: _reduce_host(pf),
             deadline=deadline, plan=plan, policy=policy)
     except resilience.DeadlineExceeded:
+        ph.end()
         return resilience.deadline_result(checker="total-queue")
     res = _render(pf, reduced, fifo, max_reported)
     if degraded:
         res["degraded"] = degraded
+    ph.end()
     return res
 
 

@@ -51,8 +51,7 @@ Not ported, on purpose:
   package pads every column to a power of two only so that
   `compilecache.bucket` can share one executable between nearby history
   sizes.  The port has no compile cache, so each column goes to the card
-  at its own length;
-- the telemetry spans and the anomaly counter.
+  at its own length.
 
 Changed on purpose: the JAX package runs without x64 and sends a history
 whose codes reach `packed.SENTINEL` (2^30) to the host
@@ -68,7 +67,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import backend
+from jepsen_tpu_torch import backend, telemetry
 from jepsen_tpu_torch.checkers import api as checker_api
 from jepsen_tpu_torch.checkers.queue import packed as packed_mod
 from jepsen_tpu_torch.checkers.queue.packed import PackedKafka
@@ -414,6 +413,9 @@ def _render(pk: PackedKafka, masks, max_reported: int) -> Dict[str, Any]:
     if unseen:
         out["unseen"] = dict(
             sorted(unseen.items(), key=repr)[:max_reported])
+    for name, entries in found.items():
+        telemetry.registry().counter(
+            "queue-anomalies-found", anomaly=name).inc(len(entries))
     return out
 
 
@@ -436,17 +438,26 @@ def check(history, test: Optional[dict] = None, *,
     from jepsen_tpu_torch.history.ir import HistoryIR
 
     dev = backend.resolve(device) if use_device else None
+    ph = telemetry.phases()
     pk = history if isinstance(history, PackedKafka) else None
     if pk is None:
+        ph.start("queue.pack", device=False)
         pk = (history.queue("kafka")
               if isinstance(history, HistoryIR)
               else packed_mod.pack_kafka(history))
     if pk.empty:
+        ph.end()
         return {"valid?": "unknown"}
     if deadline is not None:
         deadline.check(SITE)
     if not use_device:
-        return host_verdict(pk, max_reported)
+        ph.start("queue.check", device=False,
+                 sends=pk.n_sends, polls=pk.n_polls)
+        res = host_verdict(pk, max_reported)
+        ph.end()
+        return res
+    ph.start("queue.check", device=True,
+             sends=pk.n_sends, polls=pk.n_polls)
     try:
         masks, degraded = resilience.with_fallback(
             SITE,
@@ -454,10 +465,12 @@ def check(history, test: Optional[dict] = None, *,
             lambda: _reduce_host(pk),
             deadline=deadline, plan=plan, policy=policy)
     except resilience.DeadlineExceeded:
+        ph.end()
         return resilience.deadline_result(checker="kafka")
     res = _render(pk, masks, max_reported)
     if degraded:
         res["degraded"] = degraded
+    ph.end()
     return res
 
 

@@ -17,10 +17,14 @@ A db suite calls::
     if __name__ == "__main__":
         cli.run(cli.single_test_cmd(my_test))
 
-The subcommands are ``test``, ``test-all`` and ``analyze``.  The JAX
-module's ``serve``, ``trace``, ``tail``, ``shrink``, ``obs``,
-``campaign``, ``fleet`` and ``cache``, and its ``--telemetry`` and
-``--profile-dir`` flags, wait for the modules they drive.  ``--cpu``
+The subcommands are ``test``, ``test-all``, ``analyze``, ``trace DIR
+[--top N]`` (a stored run's telemetry) and ``tail DIR [-f] [-n N]
+[--since T]`` (its flight recorder; ``--since`` filters the stream
+itself, without the JAX module's warehouse fast path).  ``--telemetry``
+collects spans and metrics into the run's store dir; ``--profile-dir
+DIR`` also writes a ``torch.profiler`` trace there.  The JAX module's
+``serve``, ``shrink``, ``obs``, ``campaign``, ``fleet`` and ``cache``
+wait for the modules they drive.  ``--cpu``
 puts ``"cpu"`` in the options as the checkers' device (``opts["cpu"]``);
 without it the checkers run on the CUDA card and, with no card, record
 ``valid? unknown`` naming `NoDeviceError`.  ``JT_FORCE_CPU`` is not read.
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import re
 import sys
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -101,6 +106,18 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
                    help="skip db teardown for post-mortem inspection")
     p.add_argument("--logging-json", action="store_true",
                    help="JSON log lines")
+    p.add_argument("--telemetry", action="store_true",
+                   help="collect span tracing + metrics; writes "
+                        "telemetry.json and Chrome trace.json into the "
+                        "store dir (view with `trace <dir>` or Perfetto), "
+                        "and streams events.jsonl live (follow with "
+                        "`tail <dir> -f`)")
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="capture a torch.profiler trace (host operators "
+                        "and CUDA kernels) into this dir; implies "
+                        "telemetry, and every telemetry span is bridged "
+                        "to a record_function range so host spans and "
+                        "kernels share one Perfetto timeline")
 
 
 def opts_to_test_map(opts: argparse.Namespace) -> Dict[str, Any]:
@@ -118,6 +135,7 @@ def opts_to_test_map(opts: argparse.Namespace) -> Dict[str, Any]:
         "checker-time-limit": getattr(opts, "checker_time_limit", None),
         "leave-db-running": opts.leave_db_running,
         "store-dir": opts.store_dir,
+        "profile-dir": getattr(opts, "profile_dir", None),
     })
     return out
 
@@ -168,11 +186,138 @@ def analyze_cmd(opts: argparse.Namespace,
     return 0 if valid is True else 1
 
 
+def trace_cmd(opts: argparse.Namespace) -> int:
+    """Summarize a stored run's telemetry (span tree + metrics); with
+    ``--top N``, append the slowest-spans-by-self-time table."""
+    import json
+
+    from .telemetry import export as tel_export
+    d = opts.dir
+    if not os.path.isdir(d):
+        print(f"trace: no such directory {d!r}", file=sys.stderr)
+        return 2
+    try:
+        with open(os.path.join(d, tel_export.TELEMETRY_FILE)) as f:
+            doc = json.load(f)
+        print(tel_export.summarize(d, doc=doc))
+    except FileNotFoundError:
+        print(f"trace: {d} has no telemetry.json (run the test with "
+              "--telemetry or JEPSEN_TELEMETRY=1)", file=sys.stderr)
+        return 2
+    top = getattr(opts, "top", None)
+    if top:
+        print(f"\ntop {top} spans by self time:")
+        print(tel_export.render_top_spans(tel_export.top_spans(doc, top)))
+    return 0
+
+
+def parse_since(spec: str, now: Optional[float] = None) -> float:
+    """``--since`` argument → epoch seconds: a duration back from now
+    (``90s``, ``5m``, ``2h``, ``1d``, bare seconds), a large bare
+    number taken as an epoch timestamp, or a UTC ISO timestamp."""
+    import time as _time
+
+    s = str(spec).strip()
+    now = _time.time() if now is None else now
+    m = re.fullmatch(r"(\d+(?:\.\d+)?)([smhd]?)", s)
+    if m:
+        mult = {"": 1.0, "s": 1.0, "m": 60.0, "h": 3600.0,
+                "d": 86400.0}[m.group(2)]
+        v = float(m.group(1)) * mult
+        if m.group(2) == "" and v > 1e9:
+            return v  # an epoch timestamp, not a duration
+        return now - v
+    for fmt in ("%Y-%m-%dT%H:%M:%S", "%Y-%m-%d %H:%M:%S", "%Y-%m-%d"):
+        try:
+            import calendar
+            import time as _t
+
+            return float(calendar.timegm(_t.strptime(s, fmt)))
+        except ValueError:
+            continue
+    raise ValueError(f"bad --since {spec!r} (want e.g. 5m, 2h, 1d, "
+                     "epoch seconds, or YYYY-MM-DDTHH:MM:SS UTC)")
+
+
+def tail_cmd(opts: argparse.Namespace) -> int:
+    """`tail <run-dir>` — render a run's streamed events.jsonl as
+    human-readable progress lines; ``-f`` follows a live run; `--since
+    <ts|duration>` filters to recent events (a scan of the stream: the
+    JAX module's warehouse fast path waits for the port's warehouse).
+    The footer names the still-open span chain and the final counter
+    values — the post-mortem view for killed/wedged runs."""
+    import time as _time
+
+    from .telemetry import stream as tel_stream
+
+    since = None
+    if getattr(opts, "since", None):
+        try:
+            since = parse_since(opts.since)
+        except ValueError as e:
+            print(f"tail: {e}", file=sys.stderr)
+            return 2
+    path = opts.dir
+    if os.path.isdir(path):
+        path = (tel_stream.events_path(path)
+                or os.path.join(path, tel_stream.EVENTS_FILE))
+    if not os.path.exists(path):
+        print(f"tail: {opts.dir} has no events.jsonl (run with "
+              "--telemetry or JEPSEN_TELEMETRY=1 to stream)",
+              file=sys.stderr)
+        return 2
+
+    def since_filter(evs):
+        if since is None:
+            return evs
+        return [e for e in evs
+                if isinstance(e.get("t"), (int, float))
+                and e["t"] >= since]
+
+    if not getattr(opts, "follow", False):
+        evs = since_filter(tel_stream.read_events(path))
+        print(tel_stream.render_tail(evs, limit=opts.lines))
+        return 0
+    cursor = None
+    t0 = None
+    first = True
+    try:
+        while True:
+            # rotation-proof byte cursor, not a re-parse: a multi-hour
+            # soak's events.jsonl is unbounded (and may size-rotate any
+            # number of times between polls) and a full-file read per
+            # poll is O(n^2) over the run
+            evs, cursor = tel_stream.follow_events(path, cursor)
+            if evs:
+                # "end" can be followed by a straggler (e.g. a sampler
+                # tick racing close) — scan the batch, not just its tail
+                ended = any(e.get("ev") == "end" for e in evs)
+                evs = since_filter(evs)
+                if t0 is None and evs:
+                    t0 = evs[0].get("t")
+                if first and opts.lines is not None \
+                        and len(evs) > opts.lines:
+                    print(f"... ({len(evs) - opts.lines} earlier events)",
+                          flush=True)
+                    evs = evs[-opts.lines:] if opts.lines else []
+                first = False
+                for e in evs:
+                    if e.get("ev") == "start":
+                        t0 = e.get("t")  # new session replaced the file
+                    print(tel_stream.render_line(e, t0), flush=True)
+                if ended:
+                    return 0
+            _time.sleep(0.5)
+    except KeyboardInterrupt:
+        return 0
+
+
+
 def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                     checker_fn: Optional[Callable] = None,
                     prog: str = "jepsen-tpu-torch"):
-    """Build the standard CLI: `test` and `analyze` subcommands.
-    Returns (parser, dispatch)."""
+    """Build the standard CLI: `test`, `analyze`, `trace` and `tail`
+    subcommands.  Returns (parser, dispatch)."""
     p = base_parser(prog)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -184,11 +329,36 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
     pa = sub.add_parser("analyze", help="re-check a stored run")
     pa.add_argument("dir", help="store run directory")
 
+    ptr = sub.add_parser("trace",
+                         help="summarize a stored run's telemetry")
+    ptr.add_argument("dir", help="store run directory")
+    ptr.add_argument("--top", type=int, default=None, metavar="N",
+                     help="also print the N slowest spans by self-time "
+                          "(name, count, total/p95)")
+
+    ptl = sub.add_parser("tail",
+                         help="render a run's streamed events.jsonl "
+                              "(the flight recorder)")
+    ptl.add_argument("dir", help="store run directory (or events.jsonl)")
+    ptl.add_argument("-f", "--follow", action="store_true",
+                     help="poll for new events until the run ends")
+    ptl.add_argument("-n", "--lines", type=int, default=None,
+                     help="only show the last N event lines")
+    ptl.add_argument("--since", default=None, metavar="TS|DUR",
+                     help="only events at/after this time: a duration "
+                          "back from now (90s, 5m, 2h, 1d), epoch "
+                          "seconds, or a UTC timestamp "
+                          "(YYYY-MM-DDTHH:MM:SS)")
+
     def dispatch(opts: argparse.Namespace) -> int:
         if opts.cmd == "test":
             return run_test_cmd(test_fn, opts)
         if opts.cmd == "analyze":
             return analyze_cmd(opts, checker_fn)
+        if opts.cmd == "trace":
+            return trace_cmd(opts)
+        if opts.cmd == "tail":
+            return tail_cmd(opts)
         p.error(f"unknown command {opts.cmd}")
         return 2
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import signal
 import subprocess
 from typing import Optional
 
@@ -36,15 +37,34 @@ class LoopbackSession(Session):
         if self.root:
             env["JEPSEN_NODE_ROOT"] = self.root
             env["JEPSEN_NODE"] = self.host
+        # bash leads a session (and process group) of its own, so a
+        # timeout kills everything the command started, not bash alone;
+        # a daemon that must outlive its command detaches with setsid
+        # (`control/util.start_daemon`) and is ended by its db's teardown
+        proc = subprocess.Popen(
+            ["bash", "-c", cmd], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=self.root or None, env=env, start_new_session=True)
         try:
-            proc = subprocess.run(
-                ["bash", "-c", cmd], input=action.in_, text=True,
-                capture_output=True, timeout=self.timeout_s,
-                cwd=self.root or None, env=env)
+            out, err = proc.communicate(action.in_, timeout=self.timeout_s)
         except subprocess.TimeoutExpired as e:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.communicate()
             raise ConnectionError_(f"command timed out: {cmd}", cmd=cmd) \
                 from e
-        return CmdResult(cmd=cmd, out=proc.stdout, err=proc.stderr,
+        except BaseException:
+            # interrupted (KeyboardInterrupt, SystemExit from a signal
+            # handler): the command's group goes with its caller
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            raise
+        return CmdResult(cmd=cmd, out=out, err=err,
                          exit_status=proc.returncode)
 
     def _resolve(self, path: str) -> str:

@@ -1,8 +1,5 @@
 """The concurrency engine (the port's copy of
-`jepsen_tpu/generator/interpreter.py`, without its telemetry: the
-per-worker op counters and the generator-stall counter wait for the
-port's telemetry module, and the live-check op sink for the verifier,
-which the port does not have yet).
+`jepsen_tpu/generator/interpreter.py`).
 
 Equivalent of the reference's `jepsen/generator/interpreter.clj` (SURVEY.md
 §2.1, §3.4): one OS thread per client worker plus a nemesis worker; a
@@ -29,15 +26,15 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-from typing import List, Optional
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
+from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.client import Client, invoke_with_errors
 from jepsen_tpu_torch.generator import core as g
-from jepsen_tpu_torch.generator.context import NEMESIS_THREAD, context
+from jepsen_tpu_torch.generator.context import NEMESIS_THREAD, Context, context
 from jepsen_tpu_torch.history.ops import History, Op, history
-from jepsen_tpu_torch.resilience import faults as faults_mod
-from jepsen_tpu_torch.utils.core import (init_time_origin,
-                                         relative_time_nanos)
+from jepsen_tpu_torch.utils.core import init_time_origin, relative_time_nanos
 
 logger = logging.getLogger("jepsen.interpreter")
 
@@ -110,11 +107,13 @@ class _ClientWorker:
                 # the op into an :info completion without invoking the
                 # client — indistinguishable from a client that died
                 # mid-call, which is exactly what checkers must absorb
+                from jepsen_tpu_torch.resilience.faults import FaultInjected
+
                 idx = self.thread_id * _FAULT_STRIDE + self._n_ops
                 self._n_ops += 1
                 try:
                     self.plan.fire_at(FAULT_SITE, idx)
-                except faults_mod.FaultInjected as e:
+                except FaultInjected as e:
                     comp = dict(op, type="info",
                                 error=f"fault-injected: {e.kind}")
             if comp is None:
@@ -169,6 +168,8 @@ def run(test: dict) -> History:
     ctx = context(test)
     init_time_origin()
 
+    from jepsen_tpu_torch.resilience import faults as faults_mod
+
     plan = faults_mod.plan_for(test)
     if plan is not None and not plan.targets_site(FAULT_SITE):
         plan = None
@@ -180,6 +181,32 @@ def run(test: dict) -> History:
     events: List[dict] = []
     in_flight = 0
 
+    # the live-check op sink: every appended history event
+    # (invokes AND completions, in history order) is offered to
+    # test["op-sink"] — `verifier.client.LiveCheck.feed`, which only
+    # buffers under a lock (its own sender thread does the I/O).  A
+    # sink that raises is disarmed: live checking is an accelerant and
+    # must never break the workload.
+    sink = test.get("op-sink")
+
+    def offer(ev: dict) -> None:
+        nonlocal sink
+        if sink is None:
+            return
+        try:
+            sink(ev)
+        except Exception as e:  # noqa: BLE001
+            logger.warning("op-sink failed (%s); live feed disarmed", e)
+            sink = None
+
+    # telemetry: per-worker op counts accumulate in a local
+    # dict on the (single-threaded) dispatch loop and flush to the
+    # process registry once at the end — zero locking on the op path,
+    # zero work when disabled
+    telemetric = telemetry.enabled()
+    op_counts: Dict[Tuple[Any, str], int] = {}
+    stall_ns = 0
+
     def now() -> int:
         return relative_time_nanos()
 
@@ -187,6 +214,10 @@ def run(test: dict) -> History:
         nonlocal ctx, gen, in_flight
         comp = dict(comp, time=now())
         events.append(comp)
+        offer(comp)
+        if telemetric:
+            k = (thread, comp.get("type"))
+            op_counts[k] = op_counts.get(k, 0) + 1
         ctx = ctx.with_time(comp["time"]).free_thread(thread)
         if comp.get("type") == "info" and isinstance(comp.get("process"), int):
             ctx = ctx.with_next_process(thread, concurrency)
@@ -217,7 +248,13 @@ def run(test: dict) -> History:
                 gen = gen2
                 wake = ((op_.time - ctx.time) / 1e9
                         if op_.time is not None else _TICK_S)
-                wait_for_completion(min(max(wake, _TICK_S / 10), 10.0))
+                if telemetric:
+                    t_stall = time.perf_counter_ns()
+                    wait_for_completion(
+                        min(max(wake, _TICK_S / 10), 10.0))
+                    stall_ns += time.perf_counter_ns() - t_stall
+                else:
+                    wait_for_completion(min(max(wake, _TICK_S / 10), 10.0))
                 continue
             t_op = op_.get("time") or ctx.time
             if t_op > ctx.time:
@@ -229,7 +266,11 @@ def run(test: dict) -> History:
             gen = gen2
             invoke = dict(op_, type="invoke", time=ctx.time)
             events.append(invoke)
+            offer(invoke)
             thread = ctx.thread_for_process(invoke["process"])
+            if telemetric:
+                k = (thread, "invoke")
+                op_counts[k] = op_counts.get(k, 0) + 1
             ctx = ctx.busy_thread(thread)
             gen = g.gen_update(gen, test, ctx, invoke)
             in_flight += 1
@@ -244,7 +285,22 @@ def run(test: dict) -> History:
         for w in workers.values():
             w.thread.join(timeout=10)
         nemesis_worker.thread.join(timeout=10)
+        if telemetric:
+            _flush_metrics(concurrency, op_counts, stall_ns)
 
     ops = [Op.from_dict(e) for e in events]
     return history(ops)
 
+
+def _flush_metrics(concurrency: int,
+                   op_counts: Dict[Tuple[Any, str], int],
+                   stall_ns: int) -> None:
+    """Flush the dispatch loop's local tallies into the process-wide
+    registry: ops invoked/ok/fail/info per worker + generator stall."""
+    reg = telemetry.registry()
+    for (thread, typ), n in sorted(op_counts.items(), key=lambda kv:
+                                   (str(kv[0][0]), str(kv[0][1]))):
+        worker = "nemesis" if thread == NEMESIS_THREAD else str(thread)
+        reg.counter("interpreter-ops", worker=worker, type=typ).inc(n)
+    reg.counter("generator-stall-ns").inc(stall_ns)
+    reg.gauge("interpreter-concurrency").set(concurrency)

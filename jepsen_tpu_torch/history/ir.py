@@ -23,10 +23,10 @@ A checker that is handed an IR (`list_append.check`, `rw_register.check`,
 the pack and the pad once.  The IR *shares* the source history's op list
 and pair index, so every consumer that only needs a History keeps working.
 
-The JAX package books each section's build time into its telemetry spans;
-the port has no telemetry module, so the build times stay on the IR as a
-plain dict, :attr:`HistoryIR.build_s`.  The JAX sections whose consumers
-are not ported yet (`bucket_class`) are left out.
+Each section's build time is booked as ``host_pack_s`` phase self-time
+on the enclosing telemetry span, as in the JAX package, and kept on the
+IR as a plain dict, :attr:`HistoryIR.build_s`.  The JAX sections whose
+consumers are not ported yet (`bucket_class`) are left out.
 """
 
 from __future__ import annotations
@@ -89,11 +89,15 @@ class HistoryIR(History):
 
     def _booked(self, section: str, build):
         """Run one cache-miss section build and add its wall time to
-        `build_s[section]`."""
+        `build_s[section]` and, as ``host_pack_s`` phase self-time, to
+        the enclosing telemetry span."""
+        from jepsen_tpu_torch.telemetry import spans as _spans
+
         t0 = time.perf_counter()
         out = build()
-        self.build_s[section] = self.build_s.get(section, 0.0) + \
-            time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.build_s[section] = self.build_s.get(section, 0.0) + dt
+        _spans.add_phase("host_pack_s", dt)
         return out
 
     @property

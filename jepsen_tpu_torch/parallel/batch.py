@@ -23,9 +23,10 @@ take an `infer` branch its history would not take when checked alone;
 the verdicts are the same.
 
 Not carried over: the mesh branch (`make_mesh`, the `mesh`/`axis`
-arguments, and with them `op_shard`, `hybrid` and `slots`), the
-telemetry span and `_stage_bytes`, and the compile-cache wrapper (the
-port compiles nothing per shape).  Each batched dispatch runs under
+arguments, and with them `op_shard`, `hybrid` and `slots`) and the
+compile-cache wrapper (the port compiles nothing per shape).  Telemetric
+runs get the ``parallel.batch`` span and the ``device-bytes-staged``
+counter.  Each batched dispatch runs under
 `resilience.device_call("parallel.batch", ...)` as in the JAX package.
 """
 
@@ -41,7 +42,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import backend, resilience
+from jepsen_tpu_torch import backend, resilience, telemetry
 from jepsen_tpu_torch.checkers.elle.device_core import (
     COUNT_NAMES,
     core_check,
@@ -187,12 +188,26 @@ def check_batch(ps: Sequence[PackedTxns], caps: tuple = None,
     ``parallel.batch`` site.  There is no fallback: an error that
     outlives its retries is raised.
     """
-    batch = pad_batch(ps, caps, device=device)
-    n_keys = batch.n_keys
-    bits, over = resilience.device_call(
-        "parallel.batch", lambda: _batched_core(batch, n_keys),
-        deadline=deadline, plan=plan, policy=policy)
-    return summarize_batch_bits(bits, over, batch, n_keys, len(ps))
+    with telemetry.span("parallel.batch", histories=len(ps),
+                        shards=0) as sp:
+        batch = pad_batch(ps, caps, device=device)
+        n_keys = batch.n_keys
+        _stage_bytes(sp, batch)
+        bits, over = resilience.device_call(
+            "parallel.batch", lambda: _batched_core(batch, n_keys),
+            deadline=deadline, plan=plan, policy=policy)
+        return summarize_batch_bits(bits, over, batch, n_keys, len(ps))
+
+
+def _stage_bytes(sp, batch) -> None:
+    """Bytes of the padded batch's tensors, on the span and the
+    ``device-bytes-staged`` counter (telemetric runs only)."""
+    if not telemetry.enabled():
+        return
+    n = sum(v.numel() * v.element_size() for v in vars(batch).values()
+            if isinstance(v, torch.Tensor))
+    sp.set_attr(bytes_staged=n)
+    telemetry.registry().counter("device-bytes-staged").inc(n)
 
 
 def summarize_batch_bits(bits, over, batch, n_keys: int, n_real: int,

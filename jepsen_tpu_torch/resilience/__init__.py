@@ -32,6 +32,7 @@ from jepsen_tpu_torch.resilience.guard import (
     DEGRADED_HOST,
     degrade_to_host,
     device_call,
+    env_anomaly,
     with_fallback,
 )
 from jepsen_tpu_torch.resilience.policy import (
@@ -42,10 +43,12 @@ from jepsen_tpu_torch.resilience.policy import (
     RetryPolicy,
     deadline_result,
     is_transient,
+    is_transient_http,
 )
 
 __all__ = [
     "Deadline", "DeadlineExceeded", "RetryPolicy", "is_transient",
+    "is_transient_http", "env_anomaly",
     "DEADLINE_ERROR", "DEFAULT_POLICY", "deadline_result",
     "FaultPlan", "FaultInjected", "use", "install", "clear", "active_plan",
     "parse_spec", "seeded_for", "plan_for",

@@ -218,6 +218,11 @@ class FaultPlan:
             if kind is None:
                 return
             self.injected.append((index, site, kind))
+        from jepsen_tpu_torch import telemetry
+
+        telemetry.registry().counter("resilience-faults-injected",
+                                     site=site, kind=kind).inc()
+        telemetry.stream_event("fault", site=site, kind=kind, index=index)
         if kind == "stall":
             time.sleep(self.stall_s)
             return

@@ -14,19 +14,23 @@ Counterpart of `jepsen_tpu/resilience/policy.py`:
   "deadline-exceeded"}`` instead of an unbounded hang;
   :meth:`Deadline.resolve` reads one from a check's opts or test map.
 
-The JAX package's telemetry counters on deadline expiry are not carried
-over (the port has no telemetry module yet).
+An expiry seen by :meth:`Deadline.check` bumps the
+``resilience-deadline-expired`` counter and streams a ``deadline``
+event, as in the JAX package.  :func:`is_transient_http` classifies the
+live-check client's verifier calls.
 """
 
 from __future__ import annotations
 
 import random
+import socket
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
 __all__ = ["Deadline", "DeadlineExceeded", "RetryPolicy", "is_transient",
+           "is_transient_http",
            "DEADLINE_ERROR", "DEFAULT_POLICY", "deadline_result"]
 
 DEADLINE_ERROR = "deadline-exceeded"
@@ -87,6 +91,7 @@ class Deadline:
         """Raise :class:`DeadlineExceeded` if the budget is spent —
         the poll long loops drop into their iteration step."""
         if self.expired():
+            _count_deadline(what)
             raise DeadlineExceeded(what)
 
     def bound_sleep(self, seconds: float) -> float:
@@ -103,6 +108,14 @@ def deadline_result(**partial: Any) -> Dict[str, Any]:
     """The canonical deadline verdict: unknown + deadline-exceeded, with
     whatever partial stats the interrupted checker already computed."""
     return {"valid?": "unknown", "error": DEADLINE_ERROR, **partial}
+
+
+def _count_deadline(what: str) -> None:
+    from jepsen_tpu_torch import telemetry
+
+    telemetry.registry().counter("resilience-deadline-expired",
+                                 site=what or "unspecified").inc()
+    telemetry.stream_event("deadline", site=what or "unspecified")
 
 
 def is_transient(exc: BaseException) -> bool:
@@ -123,6 +136,32 @@ def is_transient(exc: BaseException) -> bool:
     if transient is not None:
         return bool(transient)
     return isinstance(exc, torch.cuda.OutOfMemoryError)
+
+
+#: 5xx statuses a control-plane client rides out (overload / gateway)
+_TRANSIENT_HTTP = frozenset({502, 503, 504})
+
+
+def is_transient_http(exc: BaseException) -> bool:
+    """Transient classifier for control-plane HTTP clients (the
+    live-check client's verifier calls): everything :func:`is_transient`
+    accepts, plus connection-level failures and 5xx overload/gateway
+    responses.  A verifier restart window looks like ECONNREFUSED and a
+    partition like a timeout — both are ridden out with bounded backoff,
+    while 4xx protocol errors (bad cursor, bad body) propagate
+    immediately.  :class:`DeadlineExceeded` stays non-retryable."""
+    if isinstance(exc, DeadlineExceeded):
+        return False
+    if is_transient(exc):
+        return True
+    import urllib.error
+
+    if isinstance(exc, urllib.error.HTTPError):  # before URLError: subclass
+        return exc.code in _TRANSIENT_HTTP
+    # URLError wraps the socket-level reason; raw socket errors appear
+    # when the failure races the response read
+    return isinstance(exc, (urllib.error.URLError, ConnectionError,
+                            TimeoutError, socket.timeout, OSError))
 
 
 class RetryPolicy:

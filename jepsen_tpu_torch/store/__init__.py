@@ -16,13 +16,13 @@ A ``latest`` symlink per test name and a global ``current`` symlink track the
 most recent run.
 
 The files are the JAX package's, byte for byte for plain data, so each
-package loads the other's runs.  The JAX package's telemetry export at
-:func:`save_1` (``telemetry.json`` and ``trace.json``) is not carried
-over: the port has no telemetry module yet.
+package loads the other's runs.  A telemetric run also gets its
+``telemetry.json`` and Chrome ``trace.json`` at :func:`save_1`.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import time
@@ -31,6 +31,8 @@ from typing import List, Optional
 from jepsen_tpu_torch.history.ops import History, Op
 from jepsen_tpu_torch.store import codec
 from jepsen_tpu_torch.store.format import JepsenFile, LazyHistory  # noqa: F401
+
+logger = logging.getLogger("jepsen.store")
 
 BASE = "store"
 TEST_FILE = "test.jepsen"
@@ -116,7 +118,9 @@ def save_0(test: dict) -> dict:
 
 
 def save_1(test: dict) -> dict:
-    """Phase 1: append results after analysis; history blocks untouched."""
+    """Phase 1: append results after analysis; history blocks untouched.
+    A telemetric run (collector attached by `core.run`/`core.analyze`)
+    also persists ``telemetry.json`` + Chrome ``trace.json`` here."""
     d = test_dir(test)
     results = test.get("results", {})
     jf = JepsenFile(os.path.join(d, TEST_FILE))
@@ -125,6 +129,7 @@ def save_1(test: dict) -> dict:
     jf.append_results(results)
     with open(os.path.join(d, "results.json"), "w") as f:
         f.write(codec.dumps(results).decode())
+    _save_telemetry(test, d)
     update_symlinks(test)
     return test
 
@@ -267,3 +272,36 @@ def gc_runs(base: Optional[str] = None, *, retention_s: float,
         except OSError:
             pass  # still holds runs (or the refreshed symlink)
     return stats
+
+
+def _save_telemetry(test: dict, d: str) -> None:
+    coll = test.get("telemetry-collector")
+    if coll is None or not getattr(coll, "enabled", False):
+        return
+    try:
+        from jepsen_tpu_torch import telemetry
+
+        # an analyze pass writes telemetry-analyze.json / trace-analyze
+        # .json so the original run's artifacts survive the re-check
+        import socket
+
+        meta = {
+            "name": test.get("name"),
+            "start-time": test.get("start-time"),
+            "concurrency": test.get("concurrency"),
+            # cross-host stitching: which host executed,
+            # which run/trace this artifact belongs to.  A fleet
+            # cell's identity is its WORKER name (the same host label
+            # the fleet ledger and live-check session carry), so one
+            # worker's segments land on one timeline lane
+            "host": test.get("fleet-host") or socket.gethostname(),
+        }
+        if test.get("campaign-run-id"):
+            meta["run-id"] = test["campaign-run-id"]
+        if test.get("trace-id"):
+            meta["trace-id"] = test["trace-id"]
+        telemetry.write_run(d, coll, meta=meta,
+                            suffix=test.get("telemetry-artifact-suffix",
+                                            ""))
+    except Exception as e:  # noqa: BLE001 — telemetry must not fail a save
+        logger.warning("telemetry export failed: %s", e)

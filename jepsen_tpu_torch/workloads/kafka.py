@@ -47,9 +47,9 @@ The checker covers the reference's anomaly taxonomy:
 
 With the same seeds, knobs and fault plan the simulator writes the same
 history as the JAX one.  `workload` checks with `PackedKafkaChecker` on
-`device` (the CUDA card unless the caller names the CPU).  Left out: the
-telemetry counter of each adversarial injection (the port has no
-telemetry yet).
+`device` (the CUDA card unless the caller names the CPU).  Each
+adversarial injection bumps the ``queue-adversarial-injections`` counter,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -292,6 +292,12 @@ class KafkaClient(Client):
 
     # -- adversarial shapes --
 
+    def _inj(self, shape: str) -> None:
+        from .. import telemetry
+
+        telemetry.registry().counter(
+            "queue-adversarial-injections", shape=shape).inc()
+
     def _adversary(self, test) -> set:
         """Which adversarial shapes apply to THIS op: seeded FaultPlan
         sites (only consulted when the plan names them) plus the
@@ -346,6 +352,7 @@ class KafkaClient(Client):
             # still reports the offset its value actually landed at
             rev = dict(zip(send_idx, reversed(send_idx)))
             apply_order = [rev.get(n, n) for n in apply_order]
+            self._inj("reorder-send")
         torn_keys: set = set()
         if "torn-send" in shapes:
             keys: List[Any] = []
@@ -354,7 +361,10 @@ class KafkaClient(Client):
                     keys.append(mops[n][1])
             if len(keys) >= 2:
                 torn_keys = set(keys[1:])
+                self._inj("torn-send")
         dup = "dup-send" in shapes
+        if dup and send_idx:
+            self._inj("dup-send")
         out: List[Any] = [None] * len(mops)
         for n in apply_order:
             m = mops[n]
@@ -370,6 +380,7 @@ class KafkaClient(Client):
             # a zombie retry of the last acked send, invisible to this
             # client's own completions
             s.append(*self._acked)
+            self._inj("zombie-resend")
         return out
 
     def _do_poll(self):

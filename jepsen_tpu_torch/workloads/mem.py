@@ -1,6 +1,5 @@
 """In-process simulated cluster (the port's copy of
-`jepsen_tpu/workloads/mem.py`, without the telemetry counter of each
-queue injection).
+`jepsen_tpu/workloads/mem.py`).
 
 The reference tests `core/run!` without SSH via noop dbs and docker
 (SURVEY.md §4); this module is the equivalent pure-Python strategy: a
@@ -115,6 +114,12 @@ class MemClient(Client):
         self.lose_enqueue_p = lose_enqueue_p
         self.reorder_dequeue_p = reorder_dequeue_p
 
+    def _inj(self, shape: str) -> None:
+        from .. import telemetry
+
+        telemetry.registry().counter(
+            "queue-adversarial-injections", shape=shape).inc()
+
     def open(self, test, node):
         # connectionless — all "nodes" share the store — but each
         # worker's handle remembers its node so membership changes can
@@ -154,13 +159,15 @@ class MemClient(Client):
                 s.set_elems.add(v)
                 out = dict(op, type="ok")
             elif f == "enqueue":
-                # lose: acked, never applied
-                if not (self.lose_enqueue_p and
-                        self.rng.random() < self.lose_enqueue_p):
+                if self.lose_enqueue_p and \
+                        self.rng.random() < self.lose_enqueue_p:
+                    self._inj("lose-enqueue")   # acked, never applied
+                else:
                     s.queue.append(v)
                     if self.dup_enqueue_p and \
                             self.rng.random() < self.dup_enqueue_p:
                         s.queue.append(v)       # retry applied twice
+                        self._inj("dup-enqueue")
                 out = dict(op, type="ok")
             elif f == "dequeue":
                 if s.queue:
@@ -168,6 +175,7 @@ class MemClient(Client):
                     if len(s.queue) >= 2 and self.reorder_dequeue_p and \
                             self.rng.random() < self.reorder_dequeue_p:
                         i = -1                  # tail pop: FIFO broken
+                        self._inj("reorder-dequeue")
                     out = dict(op, type="ok", value=s.queue.pop(i))
                 else:
                     out = dict(op, type="fail", error="empty")

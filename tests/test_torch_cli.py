@@ -4,9 +4,8 @@ the run's fault plans (`resilience/faults.py`: `parse_spec`,
 `plan_for` and ``JEPSEN_FAULTS``).
 
 Tolerances: the parsed options, test maps, plans and every fire
-decision are equal to the JAX package's.  The port's test map lacks
-only the keys of the flags it does not offer (``--telemetry``,
-``--profile-dir``).  `python -m jepsen_tpu_torch --cpu ... test-all`
+decision are equal to the JAX package's, the keys of ``--telemetry`` and
+``--profile-dir`` included.  `python -m jepsen_tpu_torch --cpu ... test-all`
 and `analyze DIR` exit 0 in a subprocess; the same ``test-all`` runs
 the queue and kafka demos, whose stored runs `analyze` checks again.
 """
@@ -31,9 +30,6 @@ from jepsen_tpu_torch.workloads import wr as twr  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: keys of the JAX flags the port does not offer
-JAX_ONLY = {"telemetry", "profile_dir", "profile-dir"}
-
 ARGVS = [
     ["test"],
     ["test", "-n", "a,b", "-n", "c", "-c", "2n"],
@@ -43,6 +39,7 @@ ARGVS = [
      "--checker-time-limit", "3"],
     ["test", "--username", "u", "--password", "p", "--private-key-path",
      "k", "--logging-json", "-n", "n1"],
+    ["test", "--telemetry", "--profile-dir", "prof", "-n", "n1"],
 ]
 
 
@@ -54,9 +51,7 @@ def test_opts_to_test_map_equal_to_jax(tmp_path, i):
     fn = (lambda opts: opts)
     (jp, _), (tp, _) = jcli.single_test_cmd(fn), tcli.single_test_cmd(fn)
     jo, to = jp.parse_args(argv), tp.parse_args(argv)
-    want = {k: v for k, v in jcli.opts_to_test_map(jo).items()
-            if k not in JAX_ONLY}
-    assert tcli.opts_to_test_map(to) == want
+    assert tcli.opts_to_test_map(to) == jcli.opts_to_test_map(jo)
     assert tcli.parse_nodes(to.nodes, to.nodes_file) == \
         jcli.parse_nodes(jo.nodes, jo.nodes_file)
 
@@ -75,7 +70,8 @@ def test_parse_concurrency_equal_to_jax():
 def test_subcommands_and_demo_checkers(tmp_path, capsys):
     p, _ = tcli.test_all_cmd(DEMOS)
     sub = next(a for a in p._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == ["analyze", "test", "test-all"]
+    assert sorted(sub.choices) == ["analyze", "tail", "test", "test-all",
+                                   "trace"]
     rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "nope"])
     assert rc == 2 and "nope" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2

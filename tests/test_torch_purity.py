@@ -2,8 +2,9 @@
 running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
 `rw_register.check`, Knossos, the native `wgl.check`, `session.check`,
 the queue checks, `stream.check_stored`, `batch.check_batch` and a
-`core.run` of the `append` demo) in a fresh interpreter must load
-neither `jax` nor `jepsen_tpu`.  A file of its own, so that the test run
+telemetric, live-checked `core.run` of the `append` demo) in a fresh
+interpreter must load neither `jax` nor `jepsen_tpu`.  The walk imports
+every module, the telemetry and verifier packages included.  A file of its own, so that the test run
 spreads its child process over its own worker.
 """
 
@@ -110,12 +111,18 @@ assert [x["valid?"] for x in rs] == [True, True, True, False], rs
 from jepsen_tpu_torch import core
 from jepsen_tpu_torch.__main__ import DEMOS
 from jepsen_tpu_torch.generator import core as gen
+import os
 with tempfile.TemporaryDirectory() as d:
     t = DEMOS["append"]({"store-dir": d, "cpu": True, "seed": 0,
                          "concurrency-spec": "2n"})
     t["generator"] = gen.limit(200, t["generator"])
+    t.update({"telemetry": True, "live-check": True})
     done = core.run(t)
+    rd = store.test_dir(done)
+    assert {"telemetry.json", "trace.json", "events.jsonl"} <= set(
+        os.listdir(rd)), os.listdir(rd)
 assert done["results"]["valid?"] is True and len(done["history"]) == 400
+assert done["results"]["live-check"]["seal"]["equal"] is True, done["results"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)

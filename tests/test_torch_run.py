@@ -332,10 +332,26 @@ def test_teardown_runs_when_the_workload_crashes(tmp_path, where):
 
 
 def test_live_check_raises(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        tcore.run({"name": "live", "store-dir": str(tmp_path),
-                   "live-check": {"url": "http://127.0.0.1:1"}})
+    # a URL target needs the web server's /ingest and /verdict routes
+    # (ROADMAP A4); the port refuses it before anything runs
+    for target in ("http://127.0.0.1:1", {"url": "http://127.0.0.1:1"}):
+        with pytest.raises(ValueError, match="ROADMAP A4"):
+            tcore.run({"name": "live", "store-dir": str(tmp_path),
+                       "live-check": target})
     assert not os.path.exists(os.path.join(str(tmp_path), "live"))
+
+
+def test_live_check_true_seals_equal_to_the_stored_check(tmp_path):
+    t = _test_map(PORT, "append", str(tmp_path), concurrency=3)
+    t.update({"live-check": True, "cpu": True})
+    done = tcore.run(t)
+    res = done["results"]
+    live = res["live-check"]
+    assert live["state"] == "ok", live
+    assert live["ops"] == len(done["history"])
+    assert live["valid?"] == res["valid?"] is True
+    assert live["anomaly-types"] == res["anomaly-types"] == []
+    assert live["seal"] == {"equal": True, "digest": live["digest"]}
 
 
 def test_no_card_records_unknown_and_the_cli_fails(tmp_path, monkeypatch,
