@@ -174,8 +174,8 @@ Phases, each asserting; any failure exits non-zero:
         valid, a failed writer, stale reads; the CPU's in a worker);
  13. a stored run streamed to the card through `store` and
      `checkers.elle.stream`:
-     a. `synth.la_history(n_txns=50,000, n_keys=6,250, concurrency=10)`
-        (100,000 ops) saved with `store.save_0` into a temporary store and
+     a. `synth.la_history(n_txns=12,500, n_keys=1,562, concurrency=10)`
+        (25,000 ops) saved with `store.save_0` into a temporary store and
         checked by `stream.check_stored`: valid, equal to `core_check_exact`
         on `pad_packed(pack_txns(h))`; the save, the staging (decode,
         pack and copies) against the decode and pack alone, the check,
@@ -233,7 +233,7 @@ Phases, each asserting; any failure exits non-zero:
  16. one component past MAX_K_CAP backward edges on the card, then the
      first suites against real processes, each through its command line
      in process (`cli.run(suite(), argv)`), into a store under `build/`:
-     a. `jitter_history(8,000)` (50 workers whose completions come back
+     a. `jitter_history(7,000)` (50 workers whose completions come back
         out of apply order) through `list_append.check` under strict
         serializability, valid and with `synth.inject_wr_cycle`: the
         largest component past 8,192 edges, valid and then G1c; the
@@ -317,7 +317,7 @@ Phases, each asserting; any failure exits non-zero:
         from the segment that closes the cycle; the seal gives G1c,
         equal to the batch check (`list_append.check` on the card, with
         seg-OR launches);
-     c. `verifier.sweep.batched_sweep` over 64 sessions of 2,000 txns,
+     c. `verifier.sweep.batched_sweep` over 16 sessions of 2,000 txns,
         every 8th with a G1c: one `detect_cycles` dispatch on the card;
         each session's verdict digest equal to its own per-session
         sweep's on the CPU in a worker; the dispatch's time, nodes and
@@ -328,23 +328,64 @@ Phases, each asserting; any failure exits non-zero:
         `cli.run`, in process: both exit 0;
      f. card == CPU: 18a's and 18b's stored histories fed to sessions on
         the CPU in a worker, sealed: the same digests and verdicts.
+ 19. triage and campaigns on the card (`check_triage`), through
+     `python -m jepsen_tpu_torch` in child processes that run beside one
+     another (`Child`: `counted_cli` runs the module as ``-m`` does, its
+     launch counters from 0, and writes them out), into a store under
+     `build/`; 19a, 19b, 19d, 19c(i)'s first shrink and 19c(ii)'s run
+     start before phase 13 (`start_triage`) and run beside phases 13-15:
+     a. `campaign run specs/production-traffic.json --workers 4` (thread
+        executor, one device slot; 10 cells under one skew and membership
+        schedule, auto-shrink through the host oracle): every expanded
+        run id has a verdict, the exit code is 1 exactly when a cell is
+        invalid, the kafka-chaos cell is invalid with a witness, no
+        record names `KernelError` or `NoDeviceError`, device cells hold
+        device slot 0; then, in process, `campaign run` again (no record
+        added), `status` and `report` (exit 0);
+     b. `campaign run specs/models-matrix.json --workers 2`: the same
+        rules; every invalid cell's witness re-checked on the card by
+        the cell's checker is invalid with one of its anomaly types, and
+        bank-skew's keeps its fault windows;
+     c. `shrink` with device probes (no `--host-oracle`): (i) the 500-op
+        G1c corpus of `tests/test_minimize.py` (`g1c_history`),
+        `--anomaly G1c`, rounds unbounded: at most 12 ops, probe checker
+        `list-append`, the golden digest of
+        `tests/data/witness-g1c-golden.json`, LOCF and seg-OR launches;
+        a second shrink is a cache hit with 0 probes; (ii) `test-all
+        --only append -n n1 ... -n n5 -c 2n --ops 600` (10 workers), one
+        G1c injected by `synth.inject_wr_cycle`, saved and analysed on
+        the card, then shrunk: at most 12 ops with G1c; its size,
+        rounds, probes, their p50 and p95, the seconds a probe and the
+        launches;
+     d. `campaign run` with `--executor subprocess --run-deadline 30`
+        of two cells: `regd-block` (`regd_block_test`, registered by
+        `register_workload`: three regd daemons under an unbounded
+        workload) indexed as `run-deadline-exceeded`, no process of its
+        runner or daemons left; a valid `append` cell with device slot 0;
+     e. card == CPU in the workers: every stored run of 19a-19c
+        re-checked on the CPU by its checker gives the card's dict, and
+        every witness re-shrunk on the CPU from its stored run (a copy
+        without the witness) has the card's digest; 19a's and 19b's
+        twins start after phase 17 (`submit_triage_twins`), all compare
+        in `Twins.finish`.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
 call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
-`core.run` of 17a-17c, 18a's `core.run` and 18b's seal, and read just
+`core.run` of 17a-17c, 18a's `core.run` and 18b's seal, each child of
+phase 19 and its in-process analyses and re-checks, and read just
 after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b, 14c, 15c, 16 and 17 and, from the end of phase 6 on, make the seeded
+14b, 14c, 15c, 16, 17 and 19 and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
 comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
-after phase 18, and the workers are stopped before the script exits.
+after phase 19, and the workers are stopped before the script exits.
 
 Process and thread hygiene (`guarded`): the script marks its environment
 with `JT_SMOKE_TAG=<pid>.<start time>`, which every process it starts
@@ -458,12 +499,12 @@ C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
 C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
 C5_STALE_AT = 2              # ... and this one N_STALE stale reads
 N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
-#: 13a: 50,000 txns, a quarter of the size first planned: at 200,000 the
+#: 13a: 12,500 txns, a sixteenth of the size first planned: at 200,000 the
 #: whole script took 876.5 s of its 1,200 s on one NVIDIA H100 80GB HBM3
 #: host, phase 13 187.5 s of it, most of that the Python decode and pack
 #: of the stored ops; at 100,000, with phase 17, 1,044.1 s, phase 13
-#: 108.2 s (PERF.md)
-STREAM_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
+#: 108.2 s; 50,000 until phase 19 needed the room (PERF.md)
+STREAM_KW = dict(n_txns=12_500, n_keys=1_562, concurrency=10, seed=0)
 STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
 N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
@@ -499,13 +540,14 @@ DEMO_INJECTED = (
 )
 
 #: 16a: the reproducer of one component past MAX_K_CAP backward edges
-#: (`jitter_history`), at the full cap (8,000 txns: components of about
-#: 11,000 edges; at 20,000 each check took 40 s on an H100, more than
-#: half of it on the host), and its card == CPU
+#: (`jitter_history`), at the full cap (7,000 txns since phase 19 needed
+#: the room: components of about 9,800 edges; at 8,000 about 11,000; at
+#: 20,000 each check took 40 s on an H100, more than half of it on the
+#: host), and its card == CPU
 #: comparison: on the CPU a check at the full cap takes tens of minutes
 #: (its 8,192-column planes and closures), so both sides run a smaller
 #: one with MAX_K_CAP lowered, which takes the same column-batch path
-C1_TXNS = 8_000
+C1_TXNS = 7_000
 C1_MODELS = ["strict-serializable"]
 C1_CMP_TXNS = 1_000
 C1_CMP_CAP = 256
@@ -564,11 +606,24 @@ REGD_KILL_TIME_LIMIT = 20
 LIVE_TXNS = 20_000
 LIVE_SEG = 256
 LIVE_MODELS = ("serializable",)   # the verifier service's default
-BATCH_SESSIONS = 64
+BATCH_SESSIONS = 16          # 64 until phase 19 needed the room
 BATCH_TXNS = 2_000
 BATCH_EVERY = 8
 #: keep 18a's torch.profiler trace in chiprun_out/ up to this size
 PROFILE_KEEP_BYTES = 16 << 20
+
+#: phase 19 (triage and campaigns): the two shipped specs (19a, 19b);
+#: 19c(i)'s corpus, `tests/test_minimize.py::g1c_history`, and its golden
+#: witness; 19c(ii)'s append run, `TRIAGE_OPS` txns from `TRIAGE_CONC`
+#: workers per node (each key projection of the shrink probes every key:
+#: at 2,000 txns from 10 workers, 81 keys and 3,386 probes); 19d's run
+#: deadline (a runner alone takes about 12 s to reach the card)
+TRIAGE_SPECS = ("production-traffic", "models-matrix")
+G1C_KW = dict(n_txns=250, n_keys=6, concurrency=5, seed=11)
+G1C_GOLDEN = os.path.join(HERE, "tests", "data", "witness-g1c-golden.json")
+TRIAGE_OPS = 600
+TRIAGE_CONC = "2n"
+SUB_DEADLINE = 30.0
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -1446,7 +1501,7 @@ def main(argv=None) -> int:
 
 
 def phases(opts) -> list[str]:
-    """Phases 0-18 (see the module docstring); returns the lines to print
+    """Phases 0-19 (see the module docstring); returns the lines to print
     last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
@@ -1775,6 +1830,11 @@ def phases(opts) -> list[str]:
     # ---- 12. batched checking (BASELINE config 5) on the card -------------
     check_config5(dev, launches, twins)
 
+    # phase 19's campaigns, in child processes beside phases 13-15, which
+    # check what they make whatever the host's load (16-17 run real
+    # processes under time limits)
+    early = start_triage()
+
     # ---- 13. stored runs streamed to the card -----------------------------
     check_stream(dev, launches, twins)
 
@@ -1792,10 +1852,15 @@ def phases(opts) -> list[str]:
     # ---- 17. Jepsen tests under fault packages ------------------------------
     t17 = check_faults(dev, launches, twins)
     log(f"[17] phase 17 took {t17:.1f} s")
+    submit_triage_twins(early)
 
     # ---- 18. telemetry and live checking on the card ----------------------
     t18 = check_live(dev, launches, twins)
     log(f"[18] phase 18 took {t18:.1f} s")
+
+    # ---- 19. triage and campaigns on the card ------------------------------
+    t19 = check_triage(dev, launches, twins, early)
+    log(f"[19] phase 19 took {t19:.1f} s")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -3878,6 +3943,560 @@ def check_faults(dev: torch.device, launches: dict, twins: Twins) -> float:
     return time.perf_counter() - t0
 
 
+def g1c_history(n_txns: int = G1C_KW["n_txns"], seed: int = G1C_KW["seed"]):
+    """19c(i)'s corpus (a copy of `tests/test_minimize.py::g1c_history`):
+    a strict-serializable list-append sim, 6 keys, 5 processes, with one
+    injected wr cycle."""
+    from jepsen_tpu_torch.workloads import synth
+
+    h = synth.la_history(n_txns=n_txns, n_keys=G1C_KW["n_keys"],
+                         concurrency=G1C_KW["concurrency"], seed=seed)
+    assert synth.inject_wr_cycle(h)
+    return h
+
+
+def register_block() -> None:
+    """Register 19d's blocking cell (`regd_block_test`) as the campaign
+    workload ``regd-block``."""
+    from jepsen_tpu_torch.campaign import plan
+
+    plan.register_workload("regd-block", regd_block_test)
+
+
+def counted_cli(out: str, argv: list, block: bool = False) -> int:
+    """`python -m jepsen_tpu_torch ARGV` in this process (`runpy`, as
+    ``-m`` runs it), the launch counters set to 0 just before and
+    written with the exit code to the JSON file `out` just after.  With
+    `block`, 19d's ``regd-block`` workload is registered first."""
+    import runpy
+
+    from jepsen_tpu_torch.ops import fill, scan
+
+    if block:
+        register_block()
+    sys.argv = ["jepsen_tpu_torch", *argv]
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
+    rc = 0
+    try:
+        runpy.run_module("jepsen_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        with open(out, "w") as f:
+            json.dump({"rc": rc, "locf": fill.LAUNCHES,
+                       "seg_or": scan.LAUNCHES, "end": time.time()}, f)
+    return rc
+
+
+class Child:
+    """One `counted_cli` in a child process (it inherits the run's
+    environment, `TAG_VAR` included), its output in a log file beside
+    its counts."""
+
+    def __init__(self, name: str, base: str, argv: list,
+                 block: bool = False):
+        self.name, self.argv = name, argv
+        self.out = os.path.join(base, f"{name}.json")
+        self.log_path = os.path.join(base, f"{name}.log")
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke.counted_cli("
+                f"sys.argv[1], sys.argv[2:], block={block}))")
+        self.t0 = time.time()
+        with open(self.log_path, "w") as log_f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", code, self.out, *argv], cwd=HERE,
+                stdout=log_f, stderr=subprocess.STDOUT)
+
+    def wait(self) -> tuple[int, dict, str, float]:
+        """(exit code, launches, its output, seconds from its start to
+        the end of its command)."""
+        try:
+            rc = self.proc.wait()
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        with open(self.log_path) as f:
+            text = f.read()
+        with open(self.out) as f:
+            n = json.load(f)
+        t = n["end"] - self.t0
+        assert n["rc"] == rc, (self.name, n, rc, text[-2000:])
+        return rc, {"locf": n["locf"], "seg_or": n["seg_or"]}, text, t
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def cell_checker(workload: str, opts: dict, seed: int, cpu: bool):
+    """The checker a campaign cell of the demo `workload` ran with
+    (`campaign.plan.build_test` through `__main__._wl`), on the CPU
+    under `cpu`."""
+    from jepsen_tpu_torch.__main__ import _wl
+
+    o = {**opts, "seed": seed}
+    o.pop("cpu", None)
+    if cpu:
+        o["cpu"] = True
+    return _wl(workload, o)[0]["checker"]
+
+
+def run_cpu(run_dir: str) -> dict:
+    """19e's twin of 19c(i)'s stored run: decoded here, through
+    `check_safe` of the checker it resolves to on the CPU."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers import api as checker_api
+    from jepsen_tpu_torch.minimize.probe import resolve_checker
+
+    test = store.load(run_dir)
+    h = test["history"] = test["history"].materialize()
+    return checker_api.check_safe(resolve_checker(test, h, "cpu"), test, h)
+
+
+def cell_cpu(run_dir: str, workload: str, opts: dict, seed: int) -> dict:
+    """19e's twin of a campaign cell: its stored run, decoded here,
+    through `check_safe` of the cell's checker on the CPU."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers import api as checker_api
+
+    test = store.load(run_dir)
+    h = test["history"] = test["history"].materialize()
+    return checker_api.check_safe(
+        cell_checker(workload, opts, seed, cpu=True), test, h)
+
+
+def reshrink_cpu(run_dir: str, checker_args=None, **kw) -> dict:
+    """19e's twin of a witness: a copy of the stored run at `run_dir`,
+    its witness left out, shrunk on the CPU with `kw` (the checker of
+    `cell_checker(*checker_args, cpu=True)`, else the one the run
+    resolves to on the CPU)."""
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import minimize
+
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    tmp = tempfile.mkdtemp(prefix="reshrink_", dir=os.path.join(
+        HERE, "build"))
+    try:
+        copy = os.path.join(tmp, "run")
+        shutil.copytree(run_dir, copy,
+                        ignore=shutil.ignore_patterns("witness*"))
+        chk = (cell_checker(*checker_args, cpu=True)
+               if checker_args else None)
+        s = minimize.shrink(copy, checker=chk, device="cpu", **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: s.get(k) for k in ("digest", "ops", "anomaly-types",
+                                  "fault-windows", "valid?")}
+
+
+def shrink_kw(knobs: dict) -> dict:
+    """`minimize.shrink`'s arguments for a campaign's ``"shrink"`` knobs,
+    as `campaign.core._auto_shrink` reads them."""
+    knobs = knobs if isinstance(knobs, dict) else {}
+    return dict(rounds=knobs.get("rounds"),
+                probe_deadline_s=knobs.get("probe-deadline", 30.0),
+                workers=int(knobs.get("workers", 2)),
+                device_slots=int(knobs.get("device-slots", 1)),
+                host_oracle=bool(knobs.get("host-oracle", True)))
+
+
+def triage_paths() -> tuple[str, dict, dict]:
+    """Phase 19's store (under `build/`), its specs by name and its
+    sub-stores by sub-phase."""
+    base = os.path.join(HERE, "build", "chip_smoke_triage")
+    specs = {name: os.path.join(HERE, "specs", f"{name}.json")
+             for name in TRIAGE_SPECS}
+    return base, specs, {k: os.path.join(base, k) for k in "abcd"}
+
+
+def start_triage() -> dict:
+    """Start phase 19's campaigns (19a, 19b, 19d), 19c(i)'s first shrink
+    and 19c(ii)'s run in child processes beside phases 13-15, whose
+    checks hold whatever the host's load (phases 16-17 run real
+    processes under time limits: a regd restart run beside them once
+    completed no ok txn after its restart); `check_triage` collects
+    them.  Returns the children by sub-phase, each registered with
+    `opened`, and 19c(i)'s stored run as ``"g1c"``."""
+    import shutil
+
+    from jepsen_tpu_torch import store
+
+    base, specs, stores = triage_paths()
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    g1c = {"name": "g1c-golden", "store-dir": stores["c"],
+           "history": g1c_history()}
+    store.save_0(g1c)
+    nodes = [a for n in RUN_NODES for a in ("-n", n)]
+    # 19d: a cell that blocks past the run deadline beside a valid
+    # device cell
+    sub_spec = os.path.join(base, "sub.json")
+    with open(sub_spec, "w") as f:
+        json.dump({"name": "sub", "seeds": [0], "workloads": [
+            "regd-block", {"name": "append", "label": "append",
+                           "opts": {"ops": 200, "time-limit": None}}],
+                   "opts": {"concurrency": 2}}, f)
+    return {
+        "g1c": g1c,
+        "19c-i": opened(Child("19c-i", base, [
+            "shrink", store.test_dir(g1c), "--anomaly", "G1c"])),
+        "19c-run": opened(Child("19c-run", base, [
+            "--store-dir", stores["c"], "test-all", "--only", "append",
+            *nodes, "-c", TRIAGE_CONC, "--ops", str(TRIAGE_OPS),
+            "--time-limit", str(RUN_TIME_LIMIT)])),
+        "19a": opened(Child("19a", base, [
+            "--store-dir", stores["a"], "campaign", "run",
+            specs["production-traffic"], "--workers", "4"])),
+        "19b": opened(Child("19b", base, [
+            "--store-dir", stores["b"], "campaign", "run",
+            specs["models-matrix"], "--workers", "2"])),
+        "19d": opened(Child("19d", base, [
+            "--store-dir", stores["d"], "campaign", "run", sub_spec,
+            "--workers", "2", "--executor", "subprocess",
+            "--run-deadline", str(SUB_DEADLINE)], block=True)),
+    }
+
+
+def check_triage(dev: torch.device, launches: dict, twins: Twins,
+                 early: dict) -> float:
+    """Phase 19: triage and campaigns on the card (see the module
+    docstring), through `python -m jepsen_tpu_torch` in child processes
+    (`Child`, `counted_cli`): `early`'s (19a, 19b, 19d, from
+    `start_triage`) and 19c's, which run beside one another.  Each
+    child's counters are set to 0 just before its command and read just
+    after, and the sums go into the main path's `launches`.  19e's twins
+    run in `twins` and compare in `twins.finish`.  Returns the seconds
+    the phase took from its own start."""
+    import contextlib
+    import io
+    import shutil
+
+    from jepsen_tpu_torch import cli, core, minimize, store
+    from jepsen_tpu_torch.__main__ import demo_checker
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
+    from jepsen_tpu_torch.campaign import core as ccore
+    from jepsen_tpu_torch.campaign import plan
+    from jepsen_tpu_torch.campaign.index import Index
+    from jepsen_tpu_torch.minimize.probe import resolve_checker
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.workloads import synth
+
+    t19 = time.perf_counter()
+    base, specs, stores = triage_paths()
+    n19 = {"locf": 0, "seg_or": 0}
+
+    def add(n):
+        for kname in n19:
+            n19[kname] += n[kname]
+
+    def in_process(fn):
+        """`fn()` here on the card, counted like a child."""
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        out = fn()
+        add({"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES})
+        return out
+
+    def collect(c):
+        out = c.wait()
+        closed(c)
+        add(out[1])
+        return out
+
+    g1c = early["g1c"]
+    d_g1c = store.test_dir(g1c)
+    ka, kb, kd = early["19a"], early["19b"], early["19d"]
+    kc, kr = early["19c-i"], early["19c-run"]
+    kids = []
+    try:
+        def child(name, argv, **kw):
+            c = Child(name, base, argv, **kw)
+            kids.append(c)
+            return c
+
+        # ---- 19a. the production-traffic soak ----------------------------
+        rc, n, out, t = collect(ka)
+        recs = campaign_lines("19a", "production-traffic", stores["a"],
+                              specs["production-traffic"], rc, n, t, out)
+        chaos = recs["kafka-chaos"]
+        assert chaos["valid?"] is False and chaos["witness"].get("ops"), \
+            chaos
+        submit_triage_twins(early)
+        n_before = len(Index(ccore.index_path(
+            "production-traffic", stores["a"])).records)
+        again = [["--store-dir", stores["a"], "campaign", act,
+                  specs["production-traffic"]]
+                 for act in ("run", "status", "report")]
+        for argv in again:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc2 = in_process(lambda: cli.run(demo_suite(), argv))
+            want = rc if argv[3] == "run" else 0
+            assert rc2 == want, (argv, rc2, buf.getvalue()[-2000:])
+        n_after = len(Index(ccore.index_path(
+            "production-traffic", stores["a"])).records)
+        assert n_after == n_before, (n_before, n_after)
+        log(f"[19a] campaign run again: exit {rc}, 0 runs executed "
+            f"({n_after} records); status and report exit 0")
+
+        # ---- 19b. the models matrix --------------------------------------
+        rc, n, out, t = collect(kb)
+        recs = campaign_lines("19b", "models-matrix", stores["b"],
+                              specs["models-matrix"], rc, n, t, out)
+        assert recs["bank-skew"]["valid?"] is False, recs["bank-skew"]
+        spec_b = plan.load_spec(specs["models-matrix"])
+        by_label = {rs.workload_label: rs
+                    for rs in plan.expand(spec_b)}
+        for label, rec in sorted(recs.items()):
+            if rec["valid?"] is not False:
+                continue
+            d = os.path.join(stores["b"], rec["dir"])
+            wd = minimize.load_witness(d)
+            rs = by_label[label]
+            chk = cell_checker(rs.workload, rs.opts, rs.seed, cpu=False)
+            test = store.load(d)
+            r_w = in_process(lambda: chk.check(test, wd["history"], {}))
+            kept = [(x["f"], x["kept"]) for x in wd["fault-windows"]]
+            log(f"[19b] {label}: witness {wd['ops']} ops of "
+                f"{wd['source-ops']}, {wd['anomaly-types']}, fault windows "
+                f"{kept}; re-checked on the card: valid? {r_w['valid?']} "
+                f"{r_w.get('anomaly-types')}")
+            assert r_w["valid?"] is False and set(
+                r_w.get("anomaly-types") or ()) & set(
+                wd["anomaly-types"]), (label, r_w, wd["anomaly-types"])
+            if label == "bank-skew":
+                assert wd["fault-windows"], wd
+        submit_triage_twins(early)
+
+        # ---- 19c(i). the golden G1c corpus, device probes ----------------
+        with open(G1C_GOLDEN) as f:
+            golden = json.load(f)
+        rc, n, out, t = collect(kc)
+        w = minimize.load_witness(d_g1c)
+        log(f"[19c] (i) shrink of {len(g1c['history'])} ops, --anomaly G1c, "
+            f"device probes: exit {rc} in {t:.2f} s (the child's start "
+            f"included); {w['source-ops']} -> {w['ops']} ops, {w['rounds']} "
+            f"rounds, {w['probes']} probes (p50 {w.get('probe_p50_s')} s, "
+            f"p95 {w.get('probe_p95_s')} s), probe checker "
+            f"{w['probe-checker']}, {w['anomaly-types']}, digest "
+            f"{w['digest']} (golden {golden['digest']}); launches {n}")
+        assert rc == 0 and w["valid?"] is False, (rc, out[-3000:])
+        assert w["ops"] <= 12 and w["probe-checker"] == "list-append", w
+        assert w["digest"] == golden["digest"] and "G1c" in \
+            w["anomaly-types"], (w, golden["digest"])
+        assert n["locf"] > 0 and n["seg_or"] > 0, n
+        kc2 = child("19c-i-again", ["shrink", d_g1c, "--anomaly", "G1c"])
+        r_g1c = in_process(lambda: core.analyze(d_g1c, checker=resolve_checker(
+            g1c, g1c["history"]))["results"])
+        twins.submit(("19", d_g1c), run_cpu, d_g1c)
+        twins.submit(("19w", d_g1c), reshrink_cpu, d_g1c, anomalies="G1c")
+        twins.later(("19", d_g1c), lambda r_, t_, r=r_g1c, d=d_g1c:
+                    cell_equal("19c(i) g1c-golden", d, r_, r, t_))
+        twins.later(("19w", d_g1c), lambda s_, t_, w=w:
+                    witness_equal("19c(i) g1c-golden", s_, w, t_))
+
+        # ---- 19c(ii). an append run with a G1c injected ------------------
+        rc, n, out, t = collect(kr)
+        d_run = store.latest("demo-append", base=stores["c"])
+        r_run = store.load(d_run)["results"]
+        assert rc == 0 and r_run["valid?"] is True, (rc, r_run)
+        h = store.load(d_run)["history"].materialize()
+        n_txns = sum(op.type == "invoke" for op in h)
+        assert synth.inject_wr_cycle(h)
+        inj = {"name": "demo-append", "store-dir": os.path.join(
+            stores["c"], "injected"), "start-time": time.time(),
+            "history": h}
+        store.save_0(inj)
+        d_inj = store.test_dir(inj)
+        r_inj = in_process(lambda: core.analyze(
+            d_inj, checker=demo_checker("demo-append"))["results"])
+        assert r_inj["valid?"] is False and "G1c" in \
+            r_inj["anomaly-types"], r_inj
+        kc3 = child("19c-ii", ["shrink", d_inj, "--anomaly", "G1c"])
+        twins.submit(("19w", d_inj), reshrink_cpu, d_inj, anomalies="G1c")
+        log(f"[19c] (ii) test-all --only append -c {TRIAGE_CONC} --ops "
+            f"{TRIAGE_OPS}: {len(h)} ops ({n_txns} txns) in {t:.2f} s "
+            f"(the child's start included), valid; launches {n}; "
+            f"inject_wr_cycle, saved, analyze on the card: "
+            f"{r_inj['anomaly-types']}")
+        for d, r in ((d_run, r_run), (d_inj, r_inj)):
+            twins.submit(("19", d), demo_cpu, d)
+            twins.later(("19", d), lambda r_, t_, r=r, d=d:
+                        cell_equal("19c(ii) demo-append", d, r_, r, t_))
+
+        # ---- 19c. the second shrink and (ii)'s witness --------------------
+        rc, n, out, t = kc2.wait()
+        add(n)
+        log(f"[19c] (i) shrink again: exit {rc} in {t:.2f} s; "
+            f"{out.strip().splitlines()[-3:]}")
+        assert rc == 0 and "[cached]" in out and "probes: 0" in out, \
+            out[-2000:]
+        rc, n, out, t = kc3.wait()
+        add(n)
+        w = minimize.load_witness(d_inj)
+        per = w["wall_s"] / max(1, w["probes"])
+        log(f"[19c] (ii) shrink, --anomaly G1c, device probes: exit {rc} in "
+            f"{t:.2f} s (the child's start included); {w['source-ops']} -> "
+            f"{w['ops']} ops, {w['rounds']} rounds, {w['probes']} probes, "
+            f"p50 {w.get('probe_p50_s')} s, p95 {w.get('probe_p95_s')} s, "
+            f"{per:.4f} s a probe over the shrink's {w['wall_s']} s; "
+            f"{w['anomaly-types']}; launches {n}")
+        assert rc == 0 and w["ops"] <= 12 and "G1c" in \
+            w["anomaly-types"] and w["probe-checker"] == "list-append", w
+        assert n["locf"] > 0 and n["seg_or"] > 0, n
+        twins.later(("19w", d_inj), lambda s_, t_, w=w:
+                    witness_equal("19c(ii) demo-append", s_, w, t_))
+
+        # ---- 19d. the subprocess executor --------------------------------
+        rc, n, out, t = collect(kd)
+        recs = {r["workload"]: r for r in Index(ccore.index_path(
+            "sub", stores["d"])).records}
+        block, ok = recs["regd-block"], recs["append"]
+        me = os.getpid()
+        left = [(p, _cmdline(p)) for p in marked_pids(
+            os.environ[TAG_VAR], skip={me})
+            if any(k in _cmdline(p) for k in ("campaign.runner",
+                                              stores["d"]))]
+        log(f"[19d] campaign run --executor subprocess --run-deadline "
+            f"{SUB_DEADLINE}: exit {rc} in {t:.2f} s; regd-block: valid? "
+            f"{block['valid?']}, {block['error']!r}, deadline "
+            f"{block['deadline']}; append: valid? {ok['valid?']} in "
+            f"{ok['wall_s']} s, device-slot {ok.get('device-slot')}; "
+            f"processes of the runs left: {left}; launches {n}")
+        assert "run-deadline-exceeded" in block["error"] and \
+            block["deadline"] is True and block["valid?"] == "unknown", block
+        assert ok["valid?"] is True and ok.get("device-slot") == 0, ok
+        assert rc == 0 and not left, (rc, left)
+    finally:
+        for c in kids:
+            c.close()
+    log(f"[19] launches in phase 19: {n19}")
+    assert n19["locf"] > 0 and n19["seg_or"] > 0, n19
+    for kname in launches:
+        launches[kname] += n19[kname]
+    # the stores go once every twin has read them (`Twins.finish`)
+    twins.submit("19-end", os.getpid)
+    twins.later("19-end", lambda *_: shutil.rmtree(base, ignore_errors=True))
+    return time.perf_counter() - t19
+
+
+def campaign_lines(tag: str, name: str, base: str, spec: str, rc: int,
+                   n: dict, t: float, out: str) -> dict:
+    """Read a campaign child's index, log a line per cell and assert
+    what every campaign of phase 19 holds: every expanded run id has a
+    verdict, the exit code is 1 exactly when a cell is invalid, no
+    record or witness names `KernelError` or `NoDeviceError`, and device
+    cells carry device slot 0.  Returns the latest record by label."""
+    from jepsen_tpu_torch.campaign import plan
+    from jepsen_tpu_torch.minimize.probe import device_error
+
+    cells = plan.expand(spec)
+    recs = campaign_records(name, base, spec)
+    assert recs is not None, out[-3000:]
+    for rs in cells:
+        r = recs[rs.workload_label]
+        w = r.get("witness") or {}
+        wl = (f"; witness {w.get('ops')} ops of {w.get('source-ops')}, "
+              f"{w.get('anomaly-types')}, {w.get('probes')} probes"
+              if w else "")
+        log(f"[{tag}] {rs.workload_label}: valid? {r['valid?']}, "
+            f"{r['ops']} ops, {r['wall_s']} s, device-slot "
+            f"{r.get('device-slot')}{wl}")
+        assert device_error(r) is None, r
+        assert r["valid?"] in (True, False), r
+        if rs.device:
+            assert r.get("device-slot") == 0, r
+        if r["valid?"] is False and plan.load_spec(spec)["opts"].get(
+                "shrink"):
+            assert w.get("ops") and not w.get("error"), r
+    bad = sum(r["valid?"] is False for r in recs.values())
+    log(f"[{tag}] campaign run {name}: exit {rc} in {t:.2f} s (the "
+        f"child's start included), {len(recs)} cells, {bad} invalid; "
+        f"launches {n}")
+    assert rc == (1 if bad else 0), (rc, bad, out[-3000:])
+    return recs
+
+
+def campaign_records(name: str, base: str, spec: str):
+    """The latest index record of each cell of the campaign `spec` run
+    into the store `base`, by workload label; None until every expanded
+    run id has one."""
+    from jepsen_tpu_torch.campaign import core as ccore
+    from jepsen_tpu_torch.campaign import plan
+    from jepsen_tpu_torch.campaign.index import Index
+
+    latest = Index(ccore.index_path(name, base)).latest_by_run()
+    cells = plan.expand(spec)
+    if not {rs.run_id for rs in cells} <= set(latest):
+        return None
+    return {rs.workload_label: latest[rs.run_id] for rs in cells}
+
+
+def submit_triage_twins(early: dict) -> None:
+    """19e's twins of each campaign child of `early` (19a, 19b) that has
+    ended with every cell indexed, submitted once: called after phase 17
+    as well, so that the twins (a long-fork cell's shrink takes a worker
+    a minute) run beside phase 18 and not beside 16-17's real-process
+    runs."""
+    _, specs, stores = triage_paths()
+    for tag, name, key in (("19a", "production-traffic", "a"),
+                           ("19b", "models-matrix", "b")):
+        if early.get(f"{tag} twins") or early[tag].proc.poll() is None:
+            continue
+        recs = campaign_records(name, stores[key], specs[name])
+        if recs is not None:
+            early[f"{tag} twins"] = True
+            twin_cells(tag, stores[key], specs[name], recs)
+
+
+def twin_cells(tag: str, base: str, spec: str, recs: dict) -> None:
+    """19e for a campaign's stored runs: each cell's dict and each
+    witness against its CPU twin, in `TWINS`."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.campaign import plan
+
+    spec_d = plan.load_spec(spec)
+    kw = shrink_kw(spec_d["opts"].get("shrink"))
+    by_label = {rs.workload_label: rs for rs in plan.expand(spec_d)}
+    for label, rec in sorted(recs.items()):
+        rs = by_label[label]
+        d = os.path.join(base, rec["dir"])
+        r = store.load(d)["results"]
+        args = (rs.workload, rs.opts, rs.seed)
+        TWINS.submit(("19", d), cell_cpu, d, *args)
+        TWINS.later(("19", d), lambda r_, t_, r=r, d=d, w=f"{tag} {label}":
+                    cell_equal(w, d, r_, r, t_))
+        if rec["valid?"] is False and rec.get("witness"):
+            TWINS.submit(("19w", d), reshrink_cpu, d, args, **kw)
+            TWINS.later(("19w", d), lambda s_, t_, w=rec["witness"],
+                        what=f"{tag} {label}":
+                        witness_equal(what, s_, w, t_))
+
+
+def cell_equal(what: str, d: str, r_cpu: dict, r: dict, t: float) -> None:
+    """19e: a stored run's dict on the card == its CPU twin's (the paths
+    of the SVGs an invalid check renders aside)."""
+    def drop(x):
+        return {k: v for k, v in x.items() if k != "viz-files"}
+
+    assert drop(r_cpu) == drop(r), (what, d, r_cpu, r)
+    log(f"[19e] {what}: the stored run re-checked on the CPU in a worker "
+        f"({t:.2f} s): the card's dict")
+
+
+def witness_equal(what: str, s_cpu: dict, w: dict, t: float) -> None:
+    """19e: a witness re-shrunk on the CPU == the card's."""
+    assert s_cpu["digest"] == w["digest"] and s_cpu["ops"] == w["ops"], \
+        (what, s_cpu, w)
+    log(f"[19e] {what}: re-shrunk on the CPU in a worker ({t:.2f} s): "
+        f"digest {s_cpu['digest']}, {s_cpu['ops']} ops, the card's")
+
+
 def walk_spans(sp):
     """`sp` (a span of a ``telemetry.json``) and every span below it."""
     yield sp
@@ -4262,6 +4881,18 @@ def regd_stale_test(opts: dict, n_ops: int) -> dict:
                         g.clients(g.each_thread(reads))),
                g.nemesis([{"type": "invoke", "f": "heal"}])))
     return t
+
+
+def regd_block_test(opts: dict) -> dict:
+    """19d's cell that blocks past the campaign's run deadline: the regd
+    suite on three daemons on ports the OS reports free, under an append
+    workload with no bound.  Registered with
+    `campaign.plan.register_workload`; a function of this module, so
+    that the subprocess executor's runner imports it by name."""
+    from jepsen_tpu_torch.dbs import regd_suite
+
+    return regd_suite.append_test(
+        dict(opts, **{"base-port": free_base(), "concurrency": 3}))
 
 
 class BlockBackups:

@@ -2,7 +2,8 @@
 `jepsen_tpu/__main__.py`).
 
 Ships a self-contained demo suite over the in-process sim cluster (so the
-zero-to-aha path needs no real nodes), plus `analyze` (SURVEY.md §2.1 L7).
+zero-to-aha path needs no real nodes), plus `analyze` (SURVEY.md §2.1 L7),
+`shrink` and `campaign`.
 A real db suite builds its own CLI with
 `jepsen_tpu_torch.cli.single_test_cmd`.
 
@@ -11,7 +12,9 @@ The demos are the JAX package's eleven: ``append``, ``wr``,
 ``causal``, ``write-skew`` and ``session``.  Their checkers run on the
 CUDA card, or on the CPU under ``--cpu``.  `analyze DIR` re-checks a
 stored demo run with the checker of the demo its stored name names
-(`suite`).
+(`suite`); `shrink DIR` re-checks its candidates with the same checker,
+or, for a run no demo names (a campaign cell), the one
+`minimize.resolve_checker` finds for the stored history.
 """
 
 from __future__ import annotations
@@ -140,10 +143,10 @@ def demo_checker(name: str, cpu: bool = False):
 
 
 def suite():
-    """The demos' (parser, dispatch).  `analyze DIR`'s checker is the
-    one of the demo that the stored run at DIR names, on the CPU under
-    ``--cpu``: `checker_fn` reads both from the options being
-    dispatched."""
+    """The demos' (parser, dispatch).  The checker of `analyze DIR` and
+    `shrink DIR` is the one of the demo that the stored run at DIR
+    names, on the CPU under ``--cpu``: `checker_fn` reads both from the
+    options being dispatched."""
     seen: Dict[str, Any] = {}
 
     def checker_fn():
@@ -154,8 +157,10 @@ def suite():
             name = str(store.load(opts.dir).get("name") or "")
             return demo_checker(name, opts.cpu)
         except (ValueError, FileNotFoundError) as e:
-            # with no checker, analyze reports the run it cannot check
-            print(f"analyze: {e}", file=sys.stderr)
+            # with no checker, analyze reports the run it cannot check;
+            # shrink resolves one from the stored history
+            if opts.cmd == "analyze":
+                print(f"analyze: {e}", file=sys.stderr)
             return None
 
     p, dispatch = cli.test_all_cmd(DEMOS, checker_fn=checker_fn,

@@ -18,16 +18,21 @@ A db suite calls::
         cli.run(cli.single_test_cmd(my_test))
 
 The subcommands are ``test``, ``test-all``, ``analyze``, ``trace DIR
-[--top N]`` (a stored run's telemetry) and ``tail DIR [-f] [-n N]
+[--top N]`` (a stored run's telemetry), ``tail DIR [-f] [-n N]
 [--since T]`` (its flight recorder; ``--since`` filters the stream
-itself, without the JAX module's warehouse fast path).  ``--telemetry``
+itself, without the JAX module's warehouse fast path), ``shrink DIR``
+(`minimize.shrink`: an invalid run cut down to a minimal witness) and
+``campaign run|status|report SPEC`` (`campaign`: a matrix of workload x
+fault x seed with a resumable verdict index).  ``--telemetry``
 collects spans and metrics into the run's store dir; ``--profile-dir
 DIR`` also writes a ``torch.profiler`` trace there.  The JAX module's
-``serve``, ``shrink``, ``obs``, ``campaign``, ``fleet`` and ``cache``
-wait for the modules they drive.  ``--cpu``
-puts ``"cpu"`` in the options as the checkers' device (``opts["cpu"]``);
-without it the checkers run on the CUDA card and, with no card, record
-``valid? unknown`` naming `NoDeviceError`.  ``JT_FORCE_CPU`` is not read.
+``serve``, ``obs``, ``fleet`` and ``cache`` wait for the modules they
+drive.  ``--cpu`` puts ``"cpu"`` in the options as the checkers'
+device (``opts["cpu"]``); without it the checkers run on the CUDA card
+and, with no card, a test records ``valid? unknown`` naming
+`NoDeviceError`, and ``shrink`` and ``campaign run`` exit 1 naming it
+(a campaign's cells are indexed as unknowns naming it).
+``JT_FORCE_CPU`` is not read.
 """
 
 from __future__ import annotations
@@ -170,6 +175,100 @@ def run_test_cmd(test_fn: Callable[[Dict[str, Any]], Dict[str, Any]],
     if failures:
         print(f"{failures} failing run(s)", file=sys.stderr)
     return 1 if failures else 0
+
+
+def campaign_cmd(opts: argparse.Namespace) -> int:
+    """`campaign run|status|report <spec.json>` — drive a whole fleet
+    of tests through `jepsen_tpu_torch.campaign` (see docs/CAMPAIGN.md);
+    ``--cpu`` runs the cells' checkers on the CPU."""
+    from . import campaign, report
+
+    try:
+        spec = campaign.load_spec(opts.spec)
+        campaign.expand(spec)  # plan-time validation: an unknown
+        # workload fails HERE with the registered list, not mid-fleet
+    except (OSError, ValueError) as e:
+        print(f"campaign: bad spec {opts.spec!r}: {e}", file=sys.stderr)
+        return 2
+    base = opts.store_dir
+    if opts.action == "run":
+        summary = campaign.run_campaign(
+            spec, base, workers=opts.workers,
+            device_slots=opts.device_slots, executor=opts.executor,
+            rerun=opts.rerun, run_deadline_s=opts.run_deadline,
+            cpu=bool(getattr(opts, "cpu", False)))
+        print(report.render_campaign(summary))
+        bad = summary["counts"]["false"]
+        if bad:
+            print(f"{bad} invalid run(s)", file=sys.stderr)
+        from .minimize.probe import device_error
+
+        dev_err = next((e for e in (device_error(r) for r in
+                                    summary["rows"]) if e), None)
+        if dev_err:
+            # a card that cannot check is never a quiet unknown
+            print(f"campaign: the card could not check: "
+                  f"{dev_err.strip().splitlines()[-1]}", file=sys.stderr)
+            return 1
+        return 1 if bad else 0
+    if opts.action == "status":
+        s = campaign.status_campaign(spec, base)
+        c = s["counts"]
+        print(f"campaign {s['campaign']}: {s['total']} runs, "
+              f"{s['pending']} pending — {c['true']} ok, "
+              f"{c['false']} invalid, {c['unknown']} unknown "
+              f"({c['degraded']} degraded, {c['deadline']} "
+              f"deadline-expired)\nindex: {s['index']}")
+        return 0
+    if opts.action == "report":
+        print(campaign.report_campaign(spec, base))
+        return 0
+    print(f"campaign: unknown action {opts.action!r}", file=sys.stderr)
+    return 2
+
+
+def shrink_cmd(opts: argparse.Namespace,
+               checker_fn: Optional[Callable[[], Any]] = None) -> int:
+    """`shrink <run-dir>` — delta-debug an invalid run's history to a
+    minimal failing witness (see docs/MINIMIZE.md).  The checker is the
+    one `checker_fn` gives, as for `analyze`, else the one the stored
+    run resolves to, on the CPU under ``--cpu``."""
+    from . import minimize
+    from .backend import NoDeviceError
+    from .ops.kernels import KernelError
+
+    chk = checker_fn() if checker_fn else None
+    try:
+        s = minimize.shrink(
+            opts.dir, checker=chk, rounds=opts.rounds,
+            probe_deadline_s=opts.probe_deadline,
+            workers=opts.workers, device_slots=opts.device_slots,
+            host_oracle=opts.host_oracle, anomalies=opts.anomaly,
+            force=opts.force,
+            device="cpu" if getattr(opts, "cpu", False) else None)
+    except (ValueError, FileNotFoundError) as e:
+        print(f"shrink: {e}", file=sys.stderr)
+        return 2
+    except (KernelError, NoDeviceError) as e:
+        print(f"shrink: the card could not check: {type(e).__name__}: "
+              f"{str(e).strip().splitlines()[-1]}", file=sys.stderr)
+        return 1
+    if s.get("error") == "not-invalid":
+        print(f"shrink: run is valid? = {s.get('valid?')}; nothing to "
+              "shrink", file=sys.stderr)
+        return 1
+    if s.get("error") == "target-absent":
+        print(f"shrink: requested anomaly {s.get('requested')} not in "
+              f"this run's set {s.get('anomaly-types')}", file=sys.stderr)
+        return 1
+    kinds = ",".join(s.get("anomaly-types") or ()) or "?"
+    src = s.get("source-ops", "?")
+    print(f"witness: {s['ops']} ops (from {src}) — {kinds}"
+          f"{' [cached]' if s.get('cached') else ''}")
+    print(f"rounds: {s.get('rounds', 0)}  probes: {s.get('probes', 0)}"
+          f"  digest: {s.get('digest')}")
+    print(f"written: {s['paths']['ops']}")
+    return 0 if s.get("valid?") is False else 1
 
 
 def analyze_cmd(opts: argparse.Namespace,
@@ -316,8 +415,8 @@ def tail_cmd(opts: argparse.Namespace) -> int:
 def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                     checker_fn: Optional[Callable] = None,
                     prog: str = "jepsen-tpu-torch"):
-    """Build the standard CLI: `test`, `analyze`, `trace` and `tail`
-    subcommands.  Returns (parser, dispatch)."""
+    """Build the standard CLI: `test`, `analyze`, `trace`, `tail`,
+    `shrink` and `campaign` subcommands.  Returns (parser, dispatch)."""
     p = base_parser(prog)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -350,11 +449,68 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                           "seconds, or a UTC timestamp "
                           "(YYYY-MM-DDTHH:MM:SS)")
 
+    psh = sub.add_parser("shrink",
+                         help="delta-debug an invalid run to a minimal "
+                              "failing witness (docs/MINIMIZE.md)")
+    psh.add_argument("dir", help="store run directory")
+    psh.add_argument("--rounds", type=int, default=None,
+                     help="cap on probe rounds (default: run to "
+                          "1-minimality)")
+    psh.add_argument("--probe-deadline", type=float, default=30.0,
+                     help="seconds of checker budget per candidate "
+                          "probe (expired probes count as "
+                          "non-reproducing)")
+    psh.add_argument("--workers", type=int, default=2,
+                     help="concurrent probe workers (host probes run "
+                          "wide; device probes serialize through "
+                          "--device-slots)")
+    psh.add_argument("--device-slots", type=int, default=1,
+                     help="concurrent device-pipeline probes")
+    psh.add_argument("--host-oracle", action="store_true",
+                     help="probe through the exact host reference "
+                          "checker where one exists (much cheaper for "
+                          "the many small candidates)")
+    psh.add_argument("--anomaly", action="append", default=None,
+                     help="pin the shrink target to this anomaly type "
+                          "(repeatable; default: any of the run's)")
+    psh.add_argument("--force", action="store_true",
+                     help="re-shrink even when a cached witness "
+                          "matches the history digest")
+
+    pc = sub.add_parser("campaign",
+                        help="run/inspect a fleet of tests from a "
+                             "campaign spec (docs/CAMPAIGN.md)")
+    pc.add_argument("action", choices=("run", "status", "report"))
+    pc.add_argument("spec", help="campaign spec JSON file")
+    pc.add_argument("--workers", type=int, default=2,
+                    help="concurrent campaign workers")
+    pc.add_argument("--device-slots", type=int, default=1,
+                    help="concurrent device-pipeline runs (host-only "
+                         "runs are unthrottled)")
+    pc.add_argument("--executor", choices=("thread", "subprocess"),
+                    default="thread",
+                    help="per-run isolation: in-process threads (the "
+                         "kernels stay loaded) or one subprocess per "
+                         "run (crash/hang isolation)")
+    pc.add_argument("--rerun", action="store_true",
+                    help="re-execute runs already in the index "
+                         "(appends fresh records; this is what makes "
+                         "verdict flips observable)")
+    pc.add_argument("--run-deadline", type=float, default=None,
+                    help="per-run budget in seconds (the runner's "
+                         "process group killed under the subprocess "
+                         "executor; cooperative checker deadline "
+                         "otherwise)")
+
     def dispatch(opts: argparse.Namespace) -> int:
         if opts.cmd == "test":
             return run_test_cmd(test_fn, opts)
         if opts.cmd == "analyze":
             return analyze_cmd(opts, checker_fn)
+        if opts.cmd == "shrink":
+            return shrink_cmd(opts, checker_fn)
+        if opts.cmd == "campaign":
+            return campaign_cmd(opts)
         if opts.cmd == "trace":
             return trace_cmd(opts)
         if opts.cmd == "tail":

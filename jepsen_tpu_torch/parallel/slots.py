@@ -1,0 +1,48 @@
+"""Campaign device slots for the current thread (the port's copy of the
+thread-local part of `jepsen_tpu/parallel/slots.py`).
+
+The campaign scheduler pins each device run to the slot it acquired
+(`set_active_slot` around the run on a worker thread); the subprocess
+runner exports the ``JEPSEN_CAMPAIGN_DEVICE_SLOT`` /
+``..._SLOTS`` environment pair instead.  `active_slot` reads either.
+The JAX module's mesh half (`slot_devices`, `default_mesh`,
+`place_sharded`, `set_forced_shards`) waits for the port's multi-card
+paths.
+
+Keeping this module import-light matters: it is consulted from the
+campaign scheduler threads.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional, Tuple
+
+__all__ = ["set_active_slot", "active_slot"]
+
+_local = threading.local()
+
+
+def set_active_slot(slot: Optional[int], n_slots: int = 1) -> None:
+    """Pin this THREAD's device slice to campaign slot `slot` of
+    `n_slots` (None clears).  The campaign scheduler calls this around
+    each device run; the subprocess runner exports the env pair
+    instead."""
+    _local.slot = None if slot is None else (int(slot), max(1, int(n_slots)))
+
+
+def active_slot() -> Optional[Tuple[int, int]]:
+    """(slot, n_slots) for this thread, the env pair, or None."""
+    sl = getattr(_local, "slot", None)
+    if sl is not None:
+        return sl
+    env = os.environ.get("JEPSEN_CAMPAIGN_DEVICE_SLOT")
+    if env is None:
+        return None
+    try:
+        return (int(env),
+                max(1, int(os.environ.get(
+                    "JEPSEN_CAMPAIGN_DEVICE_SLOTS", 1))))
+    except ValueError:
+        return None

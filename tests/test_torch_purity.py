@@ -1,8 +1,10 @@
 """The port's purity: importing every module of `jepsen_tpu_torch` and
 running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
 `rw_register.check`, Knossos, the native `wgl.check`, `session.check`,
-the queue checks, `stream.check_stored`, `batch.check_batch` and a
-telemetric, live-checked `core.run` of the `append` demo) in a fresh
+the queue checks, `stream.check_stored`, `batch.check_batch`, a
+telemetric, live-checked `core.run` of the `append` demo, and the CLI's
+`shrink` of a bank run and `campaign run` of bank, kafka and noop cells
+with auto-shrink, all on the CPU) in a fresh
 interpreter must load neither `jax` nor `jepsen_tpu`.  The walk imports
 every module, the telemetry and verifier packages included.  A file of its own, so that the test run
 spreads its child process over its own worker.
@@ -123,6 +125,28 @@ with tempfile.TemporaryDirectory() as d:
         os.listdir(rd)), os.listdir(rd)
 assert done["results"]["valid?"] is True and len(done["history"]) == 400
 assert done["results"]["live-check"]["seal"]["equal"] is True, done["results"]
+from jepsen_tpu_torch import cli as tcli
+from jepsen_tpu_torch import __main__ as tmain
+import json
+with tempfile.TemporaryDirectory() as d:
+    # shrink resolves a bank run's checker through `_wl_checker`'s
+    # dynamic import, which no static import scan sees
+    bh = chip_smoke.inject_bank_wrong_total(chip_smoke.bank_history(seed=1))
+    t = {"name": "purity-shrink", "store-dir": d, "history": bh,
+         "total-amount": 40, "workload-kind": "bank"}
+    store.save_0(t)
+    assert tcli.run(tmain.suite(), ["--cpu", "shrink", store.test_dir(t),
+                                    "--anomaly", "bank-wrong-total"]) == 0
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"name": "purity", "seeds": [0], "workloads": [
+            {"name": "bank", "opts": {"ops": 60, "time-limit": None}},
+            {"name": "kafka", "opts": {"ops": 60, "time-limit": None}},
+            "noop"], "opts": {"shrink": True, "concurrency": 2}}, f)
+    assert tcli.run(tmain.suite(), ["--cpu", "--store-dir", d, "campaign",
+                                    "run", spec]) in (0, 1)
+    assert tcli.run(tmain.suite(), ["--store-dir", d, "campaign",
+                                    "status", spec]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)

@@ -236,7 +236,15 @@ def test_seal_mismatch_deadline_and_sweep_faults():
 
 
 def test_verifier_spans_emitted():
+    from jepsen_tpu.resilience import guard as jguard
+    from jepsen_tpu_torch.resilience import guard as tguard
+
     h = _history(2, n_txns=80, n_keys=4)
+    # `compile_s` / `execute_s` follow each package's process-wide first
+    # sighting of a (site, shape) class: start both from none, whatever
+    # ran earlier in this process
+    jguard.reset_compile_cache_stats()
+    tguard.reset_compile_cache_stats()
     names = []
     for tel, s in ((jtel, _sessions()[0]), (ttel, _sessions()[1])):
         c = tel.activate()
