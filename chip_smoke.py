@@ -80,7 +80,7 @@ Phases, each asserting; any failure exits non-zero:
      b. the same generator without crashed ops (867 ops) through
         `analysis(algorithm="device")`, the single path over its whole
         length (one warm-up, three timed calls, one if the warm-up takes
-        over 30 s): valid, its waves, time per call and per wave, peak
+        over 5 s): valid, its waves, time per call and per wave, peak
         device memory; the stale-read variant against the host
         `wgl.check` (and under the profiler: device time and idle share);
         one wave's compaction timed as JAX writes it (a `scatter_reduce_`)
@@ -111,7 +111,7 @@ Phases, each asserting; any failure exits non-zero:
         (1,024 keys): valid and `inject_long_fork`;
      c. write skew, `ws_history(pairs=512, n_txns=100,000)`: valid and
         `inject_write_skew`;
-     d. session, `sess_history(n_keys=64, n_txns=100,000)` with pinned
+     d. session, `sess_history(n_keys=64, n_txns=50,000)` with pinned
         keys and without: valid and `inject_session_break`, two LOCF
         launches per check; `predicate.check` on the same `HistoryIR`,
         `infer_rw` run once for both;
@@ -155,13 +155,13 @@ Phases, each asserting; any failure exits non-zero:
         sweep asks for more than the card holds): G-single cycles in
         projections 2-4, converged; the budget of each sweep, seg-OR
         launches, time and peak device memory.
- 12. BASELINE config 5 on one card: 16 of its 100 histories, each
+ 12. BASELINE config 5 on one card: 8 of its 100 histories, each
      `packed_la_history(1M, n_keys=125,000, mops_per_txn=4,
      read_frac=0.25, seed=i)` (`scripts/config5_batch.py`'s generator and
      key rule), every 4th with a failed writer (`seed_invalid`, a copy of
      that script's) and history 2 with 64 stale reads, made in worker
      processes (`Twins`) from the script's start:
-     a. `parallel.batch.check_batch_checkpointed` in groups of 8, whose
+     a. `parallel.batch.check_batch_checkpointed` in groups of 4, whose
         `on_group` raises after the first durable group (the simulated
         crash); the call again resumes and computes group 1 only; the
         failed writers and the stale reads invalid, the rest valid, all
@@ -181,15 +181,15 @@ Phases, each asserting; any failure exits non-zero:
         pack and copies) against the decode and pack alone, the check,
         the chunks, peak device memory and launches;
      b. the same history with `inject_wr_cycle`: invalid, G1c;
-     c. `rw_history(n_txns=50,000)` through
+     c. `rw_history(n_txns=25,000)` through
         `check_stored(workload="rw-register")`, equal to `device_rw.check`;
      d. card == CPU at 16,384 txns: every staged array and the dicts of
         both routes;
  14. a Jepsen test run on the card, through `python -m jepsen_tpu_torch`'s
      suite (`cli.run(__main__.suite(), argv)`, in process) on
      the in-process sim cluster, with a store under `build/`:
-     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 50000
-        --time-limit 120` (50 workers, 100,000 ops): exit 0, valid, no
+     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 25000
+        --time-limit 120` (50 workers, 50,000 ops): exit 0, valid, no
         error, LOCF launches; the workload's time and rate, `save_0`, the
         check and its part on the card (infer and sweeps), the history's
         size, launches and peak device memory; the backward edges of each
@@ -201,7 +201,7 @@ Phases, each asserting; any failure exits non-zero:
         `store.save_0`, then `analyze`: invalid, G1c, seg-OR launches,
         SVGs under the run's `elle/`; card == CPU, the dicts and the SVG
         bytes;
-     d. `test-all --only wr ... --ops 50000`: valid or unknown (as
+     d. `test-all --only wr ... --ops 25000`: valid or unknown (as
         `tests/test_workloads.py` allows), card == CPU on its history;
      e. one child process, `python -X importtime -m jepsen_tpu_torch
         test-all --only append --ops 2000` with no `--cpu`: exit 0,
@@ -210,7 +210,7 @@ Phases, each asserting; any failure exits non-zero:
  15. the JAX package's other nine demos as Jepsen tests on the card,
      through the same suite, each at its `_wl` defaults, into a store
      under `build/`:
-     a. `test-all --only <demo> -n n1 ... -n n5 --ops 20000 -c 10n`
+     a. `test-all --only <demo> -n n1 ... -n n5 --ops 10000 -c 10n`
         (50 workers) for bank, long-fork, set, queue, causal, write-skew
         and session, `-c 2n` (10 workers) for kafka, and `-c 2n --ops
         1000` for lin-register (BASELINE config 1's size): exit 0 and
@@ -250,7 +250,7 @@ Phases, each asserting; any failure exits non-zero:
         the full cap;
      b. (after 16c, whose CPU twins then run beside it) `python -m
         jepsen_tpu_torch.dbs.sqlite test-all --only append` and `--only
-        wr`, `-c 10 --ops 20000`: exit 0 and valid; each
+        wr`, `-c 10 --ops 10000`: exit 0 and valid; each
         run's workload rate, `save_0`, the check and its part on the
         card, launches (LOCF in the append check), the backward edges
         and largest component of each projection, peak device memory;
@@ -259,9 +259,9 @@ Phases, each asserting; any failure exits non-zero:
         blocked backups under strict serializability, 120 ops, first
         (its CPU twin is the phase's longest): exit 1, valid? false;
         `python -m jepsen_tpu_torch.dbs.regd_suite test-all --only
-        append -n n1 -n n2 -n n3 --time-limit 30`: valid; the same run
+        append -n n1 -n n2 -n n3 --time-limit 20`: valid; the same run
         with the primary killed and restarted between three phases of
-        3,300 ops: valid, with ok txns on both sides of the restart;
+        1,650 ops: valid, with ok txns on both sides of the restart;
         each line as 16b's, with the fail and info completions;
      d. `perf()`, `html_timeline()` and `Stats` composed on 16c's
         stored run: the size of `timeline.html` in the store and
@@ -368,6 +368,42 @@ Phases, each asserting; any failure exits non-zero:
         without the witness) has the card's digest; 19a's and 19b's
         twins start after phase 17 (`submit_triage_twins`), all compare
         in `Twins.finish`.
+ 20. the observatory (`check_obs`) on the stores phases 14, 18 and 19
+     left, within a budget of `OBS_BUDGET_S` of wall time, each step
+     timed:
+     a. `python -m jepsen_tpu_torch --store-dir S obs ingest` in two child
+        processes over 19a's and 19b's stores (beside 20d), then 18's
+        store (18a's live-checked run, its events.jsonl and the verifier
+        sessions) in process: each warehouse's counts and size; a second
+        ingest changes no row; `obs rebuild` gives the same counts;
+     b. for 19a's and 19b's ledgers an `Index` backed by the warehouse
+        answers `flips`, `witness_diffs`, `span_stats`, `span_samples`
+        and `span_trend` of every span, `forensic_records`,
+        `verdict_counts`, `latest_by_run` (its grid projection) and
+        `profile` as the jsonl scan does (the profile's summed times
+        within the 6-decimal rounding of each run dir); `tail DIR
+        --since` of 18a's run answers from the event table and prints
+        what the stream scan prints;
+     c. 19a's spec cut to its three append cells, no nemesis schedule,
+        run in process on the card into a store with a warehouse: the
+        post-campaign ingest brings `campaign_records` to the ledger's
+        count; after `obs ingest`, `obs profile` lists the device-call
+        sites, their times from spans whose `device_time_ns` (CUDA
+        events) is above 0; its launches;
+     d. `repl.latest` and `repl.recheck` with the demo's Elle checker of
+        14c's injected run on the card: the dict equals 14c's (seg-OR
+        and LOCF launches); `checkers.knossos.cli.main` on 8a's config-1
+        history as a JSON file: exit 0 and valid on the card, the same
+        with ``--cpu``;
+     e. `obs alerts --eval` in process on 18's store with the stock pack
+        and a threshold rule on ``gauge:device-memory-peak-bytes`` below
+        the peak the resource sampler read from `torch.cuda.memory_stats`:
+        the rule fires and its `WebhookSink` posts once to an
+        `http.server` on 127.0.0.1 (a daemon thread the phase joins); a
+        second `--eval` posts nothing, the journal replays to the same
+        digest; `prometheus.exposition` of the store parses line by line
+        as text format 0.0.4 with the warehouse's rollup gauges and the
+        firing ``ALERTS`` series (`chiprun_out/20e_metrics.txt`).
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
@@ -375,7 +411,8 @@ before `core_check_exact` in phase 4, just before each `check` of phase
 call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
 `core.run` of 17a-17c, 18a's `core.run` and 18b's seal, each child of
-phase 19 and its in-process analyses and re-checks, and read just
+phase 19 and its in-process analyses and re-checks, 20c's campaign and
+20d's re-check and Knossos CLI calls, and read just
 after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
@@ -407,6 +444,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -449,7 +487,9 @@ LIN_WIDE = dict(n_ops=300, concurrency=20, info_prob=0.0, seed=0)  # 8c
 LIN_CMP = dict(n_ops=200, concurrency=10, info_prob=0.0, seed=1)   # 8d
 CMP_FRONTIER = 1024          # 8d: the single path's frontier on both sides
 FRONTIER = 16384             # device_wgl.check's default max_frontier
-ONE_CALL_S = 30.0            # 8b: above this a warm-up, one timed call
+#: 8b: above this a warm-up, one timed call (30 s until the script took
+#: 1,254.2 s on a slower H100 host; a call there takes about 7 s)
+ONE_CALL_S = 5.0
 COMPACT_WAVE = 100           # 8b: the stale search's wave whose compaction
                              # is timed both ways (it runs 137)
 #: 9a: jepsen.tests.bank's defaults: 8 accounts holding 100 in all (12 or
@@ -460,7 +500,10 @@ BANK_TEST = {"total-amount": 100}
 N_BANK_READS = 1_000_000     # 9a: the reduction at scale, a PackedBank
 LF_KW = dict(groups=256, group_size=4, n_reads=50_000, seed=0)     # 9b
 WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
-SESS_KW = dict(n_keys=64, n_txns=100_000, seed=0)                  # 9d
+#: 9d at 50,000 txns since the script took 1,254.2 s on a slower H100
+#: host
+#: (100,000 before: the unpinned host session check is quadratic)
+SESS_KW = dict(n_keys=64, n_txns=50_000, seed=0)                   # 9d
 N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
 INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
 #: 10: the kafka corpus's generator knobs (tests/test_queue_checkers.py)
@@ -493,8 +536,11 @@ SHAPES_10M = (1 << 24, 1 << 26, 1 << 28)
 #: a (3 * 2^26, 128) int8 plane, 24 GiB); 32 is scripts/tpu_10m.py's, and
 #: `core_check_exact` grows it while the sweep overflows
 MAX_K_10M = 32
-N_C5 = 16                    # 12: of BASELINE config 5's 100 histories
-C5_GROUP = 8                 # check_batch_checkpointed's group size
+#: 12: of BASELINE config 5's 100 histories, in groups of `C5_GROUP`
+#: (16 in groups of 8 until the script took 1,124.6 s on a slower H100
+#: host)
+N_C5 = 8
+C5_GROUP = 4                 # check_batch_checkpointed's group size
 C5_KW = dict(mops_per_txn=4, read_frac=0.25)   # scripts/config5_batch.py
 C5_INVALID_EVERY = 4         # every 4th history carries a failed writer
 C5_STALE_AT = 2              # ... and this one N_STALE stale reads
@@ -505,15 +551,18 @@ N_C5_CMP = 65_536            # 12c: card == CPU on 4 histories this size
 #: of the stored ops; at 100,000, with phase 17, 1,044.1 s, phase 13
 #: 108.2 s; 50,000 until phase 19 needed the room (PERF.md)
 STREAM_KW = dict(n_txns=12_500, n_keys=1_562, concurrency=10, seed=0)
-STREAM_RW_KW = dict(n_txns=50_000, n_keys=6_250, concurrency=10, seed=0)
+#: 13c at 25,000 txns since the script took 1,254.2 s on a slower H100
+#: host
+STREAM_RW_KW = dict(n_txns=25_000, n_keys=3_125, concurrency=10, seed=0)
 N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
 #: flags of the JAX package's demo (`-n n1 ... -n n5 -c 10n`: 50 workers)
 RUN_NODES = ("n1", "n2", "n3", "n4", "n5")
-#: 14a: append txns (100,000 history ops); 100,000 until phase 18 needed
-#: its room (the workload, `save_0` and 14b's decode about 25 s of it)
-RUN_OPS = 50_000
-RUN_WR_OPS = 50_000          # 14d
+#: 14a: append txns (50,000 history ops); 100,000 until phase 18 needed
+#: its room (the workload, `save_0` and 14b's decode about 25 s of it),
+#: 50,000 until the script took 1,254.2 s on a slower H100 host
+RUN_OPS = 25_000
+RUN_WR_OPS = 25_000          # 14d
 RUN_TIME_LIMIT = 120
 RUN_CHILD_OPS = 2_000        # 14e
 
@@ -521,13 +570,16 @@ RUN_CHILD_OPS = 2_000        # 14e
 #: at its `_wl` defaults: (demo, -c, --ops).  lin-register at BASELINE
 #: config 1's 1,000 ops from 10 workers, kafka at 10a's 10 clients.
 #: causal first: its check, and its CPU twin in a worker, are the
-#: longest (the host session walker), so the twin runs beside the rest
+#: longest (the host session walker), so the twin runs beside the rest.
+#: 10,000 ops each since the script took 1,124.6 s on a slower H100
+#: host (20,000 before; the injected runs of 15b keep 20,000, where
+#: their rates give about 10 anomalies a run)
 DEMO_RUNS = (
-    ("causal", "10n", 20_000), ("lin-register", "2n", 1_000),
-    ("bank", "10n", 20_000), ("long-fork", "10n", 20_000),
-    ("set", "10n", 20_000), ("queue", "10n", 20_000),
-    ("kafka", "2n", 20_000), ("write-skew", "10n", 20_000),
-    ("session", "10n", 20_000),
+    ("causal", "10n", 10_000), ("lin-register", "2n", 1_000),
+    ("bank", "10n", 10_000), ("long-fork", "10n", 10_000),
+    ("set", "10n", 10_000), ("queue", "10n", 10_000),
+    ("kafka", "2n", 10_000), ("write-skew", "10n", 10_000),
+    ("session", "10n", 10_000),
 )
 #: 15b: (demo, -c, --ops, test-map keys the run adds, the anomaly they
 #: must show)
@@ -552,17 +604,19 @@ C1_MODELS = ["strict-serializable"]
 C1_CMP_TXNS = 1_000
 C1_CMP_CAP = 256
 CLOSURE_CHECK = 4_096        # 16a: the closure against the host's SCCs
-#: 16b: the sqlite suite, 10 workers and 20,000 ops a workload
-DB_OPS = 20_000
+#: 16b: the sqlite suite, 10 workers and 10,000 ops a workload (20,000
+#: until the script took 1,254.2 s on a slower H100 host)
+DB_OPS = 10_000
 DB_CONC = "10"
-#: 16c: the regd suite on three daemons: a 30 s run under the suite's
+#: 16c: the regd suite on three daemons: a 20 s run under the suite's
 #: stagger(0.003), the primary crashed and restarted between three
 #: phases of as many ops, and `test_regd_stale_reads_caught`'s stale
 #: reads run at 120 ops (at its 250 the host classification of the
-#: invalid check took 40 s)
+#: invalid check took 40 s).  20 s and 1,650 ops a phase since the
+#: script took 1,254.2 s on a slower H100 host (30 s and 3,300 before)
 REGD_NODES = ("n1", "n2", "n3")
-REGD_TIME_LIMIT = 30
-REGD_PHASE_OPS = 3_300
+REGD_TIME_LIMIT = 20
+REGD_PHASE_OPS = 1_650
 REGD_STALE_OPS = 120
 #: 17a: the toy raft (`dbs/toyraft.append_test`) from 10 workers under
 #: the partition, kill and membership packages, each fault cycle
@@ -624,6 +678,16 @@ G1C_GOLDEN = os.path.join(HERE, "tests", "data", "witness-g1c-golden.json")
 TRIAGE_OPS = 600
 TRIAGE_CONC = "2n"
 SUB_DEADLINE = 30.0
+
+#: phase 20 (the observatory): its wall-time budget, which it logs itself
+#: against; 20c's campaign, 19a's spec cut to its three append cells with
+#: no nemesis schedule; 20e's alert rule on the card's memory watermark
+OBS_BUDGET_S = 30.0
+OBS_CAMPAIGN = "obs-append"
+OBS_RULE = "card-peak-memory"
+#: what phase 20 reads of earlier phases: 14c's injected stored run and
+#: its result dict (``"14c"``), 18's store and 18a's run dir (``"18"``)
+SHARED: dict = {}
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -933,13 +997,48 @@ def closed(obj) -> None:
     obj.close()
 
 
+#: `PF_KTHREAD` in the flags of ``/proc/<pid>/stat``
+PF_KTHREAD = 0x00200000
+
+
+def _proc_bytes(pid: int, name: str) -> bytes:
+    """``/proc/<pid>/<name>`` (``environ`` or ``cmdline``) of a process
+    that may be between two ``execve`` calls.
+
+    A daemon started by `control/util.start_daemon` execs ``setsid``,
+    ``nohup``, ``env`` and then its program, and while each new image
+    sets up its stack both files read empty (its ``env_end`` in
+    ``/proc/<pid>/stat`` is still 0; a read opened before an exec and
+    finished after it is empty too).  So an empty read of a live user
+    process is taken again, every millisecond while the process is
+    mid-exec and once more after it; a zombie, a kernel thread or a
+    process whose settled image is empty answers empty."""
+    settled = False
+    data = b""
+    for _ in range(500):  # 0.5 s: an exec sets up its image in far less
+        try:
+            with open(f"/proc/{pid}/{name}", "rb") as f:
+                data = f.read()
+        except OSError:
+            return b""  # gone, or not ours to read
+        if data or settled:
+            return data
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                st = f.read().rsplit(") ", 1)[1].split()
+        except (OSError, IndexError):
+            return data
+        if st[0] in "ZX" or int(st[6]) & PF_KTHREAD:
+            return data
+        settled = int(st[48]) != 0  # env_end: the image's stack is set up
+        if not settled:
+            time.sleep(0.001)
+    return data
+
+
 def _cmdline(pid: int) -> str:
-    try:
-        with open(f"/proc/{pid}/cmdline", "rb") as f:
-            return f.read().replace(b"\0", b" ").decode(
-                "utf-8", "replace").strip()
-    except OSError:
-        return ""
+    return _proc_bytes(pid, "cmdline").replace(b"\0", b" ").decode(
+        "utf-8", "replace").strip()
 
 
 def is_resource_tracker(pid: int) -> bool:
@@ -960,11 +1059,9 @@ def marked_pids(tag: str, skip=()) -> list[int]:
         try:
             if os.stat(f"/proc/{name}").st_uid != uid:
                 continue
-            with open(f"/proc/{name}/environ", "rb") as f:
-                env = f.read().split(b"\0")
         except OSError:
-            continue  # gone, or not ours to read
-        if needle in env:
+            continue  # gone
+        if needle in _proc_bytes(int(name), "environ").split(b"\0"):
             out.append(int(name))
     return out
 
@@ -1501,7 +1598,7 @@ def main(argv=None) -> int:
 
 
 def phases(opts) -> list[str]:
-    """Phases 0-19 (see the module docstring); returns the lines to print
+    """Phases 0-20 (see the module docstring); returns the lines to print
     last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
@@ -1861,6 +1958,10 @@ def phases(opts) -> list[str]:
     # ---- 19. triage and campaigns on the card ------------------------------
     t19 = check_triage(dev, launches, twins, early)
     log(f"[19] phase 19 took {t19:.1f} s")
+
+    # ---- 20. the observatory on the stores of phases 14, 18 and 19 --------
+    t20 = check_obs(launches)
+    log(f"[20] phase 20 took {t20:.1f} s (budget {OBS_BUDGET_S:.0f} s)")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -3211,6 +3312,7 @@ def check_run(dev: torch.device, launches: dict, twins: Twins) -> None:
             "store-dir": os.path.join(twins.dir, "runs")})
         rc, sp, n, peak, _ = counted(["analyze", dc])
         r14c = results(dc)
+        SHARED["14c"] = (dc, r14c)
         assert rc == 1 and r14c["valid?"] is False, (rc, r14c)
         assert "G1c" in r14c["anomaly-types"], r14c
         assert n["seg_or"] > 0, n
@@ -4444,8 +4546,9 @@ def submit_triage_twins(early: dict) -> None:
     a minute) run beside phase 18 and not beside 16-17's real-process
     runs."""
     _, specs, stores = triage_paths()
-    for tag, name, key in (("19a", "production-traffic", "a"),
-                           ("19b", "models-matrix", "b")):
+    # 19b first: its long-fork cell's re-shrink is the longest twin
+    for tag, name, key in (("19b", "models-matrix", "b"),
+                           ("19a", "production-traffic", "a")):
         if early.get(f"{tag} twins") or early[tag].proc.poll() is None:
             continue
         recs = campaign_records(name, stores[key], specs[name])
@@ -4463,19 +4566,22 @@ def twin_cells(tag: str, base: str, spec: str, recs: dict) -> None:
     spec_d = plan.load_spec(spec)
     kw = shrink_kw(spec_d["opts"].get("shrink"))
     by_label = {rs.workload_label: rs for rs in plan.expand(spec_d)}
-    for label, rec in sorted(recs.items()):
-        rs = by_label[label]
-        d = os.path.join(base, rec["dir"])
-        r = store.load(d)["results"]
-        args = (rs.workload, rs.opts, rs.seed)
-        TWINS.submit(("19", d), cell_cpu, d, *args)
-        TWINS.later(("19", d), lambda r_, t_, r=r, d=d, w=f"{tag} {label}":
-                    cell_equal(w, d, r_, r, t_))
+    cells = [(label, rec, os.path.join(base, rec["dir"]),
+              (by_label[label].workload, by_label[label].opts,
+               by_label[label].seed))
+             for label, rec in sorted(recs.items())]
+    # the re-shrinks first: they are the long twins
+    for label, rec, d, args in cells:
         if rec["valid?"] is False and rec.get("witness"):
             TWINS.submit(("19w", d), reshrink_cpu, d, args, **kw)
             TWINS.later(("19w", d), lambda s_, t_, w=rec["witness"],
                         what=f"{tag} {label}":
                         witness_equal(what, s_, w, t_))
+    for label, rec, d, args in cells:
+        r = store.load(d)["results"]
+        TWINS.submit(("19", d), cell_cpu, d, *args)
+        TWINS.later(("19", d), lambda r_, t_, r=r, d=d, w=f"{tag} {label}":
+                    cell_equal(w, d, r_, r, t_))
 
 
 def cell_equal(what: str, d: str, r_cpu: dict, r: dict, t: float) -> None:
@@ -4509,7 +4615,8 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
     docstring).  The counters are set to 0 just before 18a's `core.run`
     and 18b's seal and read just after each; the sums go into the main
     path's `launches`.  18c's per-session twins and 18f's run in
-    `twins`.  Returns the seconds it took."""
+    `twins`.  The store stays for phase 20 (`SHARED["18"]`).  Returns
+    the seconds it took."""
     import contextlib
     import io
     import shutil
@@ -4563,6 +4670,7 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
         res = done["results"]
         lc = res["live-check"]
         da = store.test_dir(done)
+        SHARED["18"] = (base, da)
         assert res["valid?"] is True and "error" not in res, res
         assert lc["state"] == "ok", lc
         assert lc["ops"] == len(done["history"]) == 2 * LIVE_TXNS, lc
@@ -4776,9 +4884,481 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
                 f"{got['anomaly-types']} equal to the card's, in "
                 f"{t_cpu:.2f} s (waited {t_wait:.2f} s)")
         assert got["anomaly-types"] == sealed["verdict"]["anomaly-types"]
+    except BaseException:
+        shutil.rmtree(base, ignore_errors=True)
+        raise
+    # the store stays for phase 20, which removes it
+    return time.perf_counter() - t0
+
+
+def webhook_server():
+    """20e's webhook endpoint: an `http.server` on 127.0.0.1 (a port the
+    OS picks) that records each POSTed JSON body on its ``posts``."""
+    import http.server
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 — the handler protocol's name
+            n = int(self.headers.get("Content-Length") or 0)
+            self.server.posts.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+            self.wfile.write(b"ok")
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+    srv.posts = []
+    return srv
+
+
+#: a sample line of the Prometheus text format 0.0.4: a metric name,
+#: optional labels (escaped values), a value, an optional timestamp
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\[\\"n])*"'
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\[\\"n])*")*\})?'
+    r' (-?(?:[0-9]+(?:\.[0-9]*)?(?:[eE][+-]?[0-9]+)?)|NaN|[+-]Inf)'
+    r'(?: -?[0-9]+)?$')
+PROM_TYPES = ("counter", "gauge", "histogram", "summary", "untyped")
+
+
+def parse_exposition(text: str) -> dict:
+    """Parse a Prometheus text exposition (format 0.0.4) line by line:
+    ``# HELP`` and ``# TYPE`` lines, each family typed before its first
+    sample (a histogram's ``_bucket``, ``_sum`` and ``_count``), every
+    sample line well formed.  Returns {sample name with labels: value}."""
+    types, samples = {}, {}
+    assert text.endswith("\n"), text[-200:]
+    for line in text[:-1].split("\n"):
+        if line.startswith("# HELP "):
+            assert len(line.split(" ", 3)) >= 3, line
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            assert kind in PROM_TYPES and name not in types, line
+            types[name] = kind
+            continue
+        m = PROM_SAMPLE.match(line)
+        assert m, line
+        name = m.group(1)
+        fam = next((f for f in (name, re.sub(r"_(bucket|sum|count)$", "",
+                                             name)) if f in types), None)
+        assert fam is not None, ("sample before its TYPE", line)
+        samples[name + (m.group(2) or "")] = float(m.group(3))
+    return samples
+
+
+def check_obs(launches: dict) -> float:
+    """Phase 20: the observatory on the stores of phases 14, 18 and 19
+    (see the module docstring).  The counters are set to 0 just before
+    20d's re-check, the Knossos CLI's calls and 20c's campaign and read
+    just after each; the sums go into the main path's `launches`.  Each
+    step's time is logged against `OBS_BUDGET_S`.  Removes phase 18's
+    store and its own.  Returns the seconds it took."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+
+    from jepsen_tpu_torch import cli, repl, store, telemetry
+    from jepsen_tpu_torch.__main__ import demo_checker
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
+    from jepsen_tpu_torch.campaign import core as ccore
+    from jepsen_tpu_torch.campaign.index import Index
+    from jepsen_tpu_torch.checkers.knossos import cli as kcli
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.telemetry import alerts, prometheus, warehouse
+    from jepsen_tpu_torch.telemetry import stream as tel_stream
+    from jepsen_tpu_torch.workloads.synth import lin_register_history
+
+    t20 = time.perf_counter()
+    base18, da = SHARED["18"]
+    dc, r14c = SHARED["14c"]
+    _, specs, stores = triage_paths()
+    base = os.path.join(HERE, "build", "chip_smoke_obs")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    suite = demo_suite()
+    steps: dict = {}
+
+    def zero():
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+
+    def count():
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in launches:
+            launches[kname] += n[kname]
+        return n
+
+    def run_cli(argv, runner=None):
+        """`cli.run(suite, argv)` (or `runner(argv)`) in this process:
+        (exit code, its standard output)."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = (runner or (lambda a: cli.run(suite, a)))(argv)
+        return rc, out.getvalue()
+
+    def moved(a: dict) -> dict:
+        # verifier sessions are upserted on every ingest (both packages):
+        # whether that changed a row, `rows` tells
+        return {k: v for k, v in a.items()
+                if k not in ("ledgers", "sessions") and v}
+
+    def rows(path: str) -> dict:
+        """Every row of every data table of the warehouse at `path`, in
+        order, without row ids (re-upserted rows get new ones) and the
+        ingest's clock column."""
+        import sqlite3
+
+        db = sqlite3.connect(path)
+        try:
+            out = {}
+            for tbl in warehouse._DATA_TABLES:
+                cols = [r[1] for r in db.execute(
+                    f"PRAGMA table_info({tbl})")
+                    if r[1] not in ("id", "ingested_at")]
+                sel = ", ".join(cols)
+                out[tbl] = db.execute(
+                    f"SELECT {sel} FROM {tbl} ORDER BY {sel}").fetchall()
+            return out
+        finally:
+            db.close()
+
+    try:
+        # ---- 20a's children first: they ingest 19a's and 19b's stores
+        # beside 20d
+        t0 = time.perf_counter()
+        kids = {k: opened(Child(f"20a-{k}", base, [
+            "--store-dir", stores[k], "obs", "ingest"])) for k in "ab"}
+
+        # ---- 20d. A1 on the card: the REPL and the Knossos CLI ---------
+        t1 = time.perf_counter()
+        base14 = os.path.dirname(os.path.dirname(dc))
+        assert store.latest("demo-append", base=base14) == dc
+        t = repl.latest("demo-append", base=base14)
+        t_load = time.perf_counter() - t1
+        zero()
+        t2 = time.perf_counter()
+        r = repl.recheck(t, demo_checker("demo-append"))["results"]
+        t_check = time.perf_counter() - t2
+        n_d = count()
+        assert r == r14c, (r.get("anomaly-types"), r14c.get("anomaly-types"))
+        assert n_d["locf"] > 0 and n_d["seg_or"] > 0, n_d
+        log(f"[20d] repl.latest of 14c's injected run ({len(t['history'])} "
+            f"ops) {t_load:.2f} s, repl.recheck with the demo's Elle "
+            f"checker on the card {t_check:.2f} s: valid? {r['valid?']}, "
+            f"{r['anomaly-types']}, the dict equal to 14c's; launches "
+            f"{n_d}")
+        hl = lin_register_history(**LIN_KW)
+        hp = os.path.join(base, "config1.json")
+        with open(hp, "w") as f:
+            json.dump([op.to_dict() for op in hl], f)
+        got = {}
+        for where, extra in (("card", []), ("cpu", ["--cpu"])):
+            zero()
+            t3 = time.perf_counter()
+            rc, text = run_cli([hp, *extra], kcli.main)
+            got[where] = (rc, json.loads(text), time.perf_counter() - t3,
+                          count())
+        (rc_g, res_g, t_g, n_g), (rc_c, res_c, t_c, _) = \
+            got["card"], got["cpu"]
+        assert rc_g == rc_c == 0, (rc_g, rc_c)
+        assert res_g["valid?"] is res_c["valid?"] is True, (res_g, res_c)
+        steps["20d"] = time.perf_counter() - t1
+        log(f"[20d] knossos.cli.main on 8a's config-1 history as JSON "
+            f"({len(hl)} entries): on the card exit {rc_g}, valid? "
+            f"{res_g['valid?']}, won by {res_g.get('algorithm')!r}, "
+            f"{t_g:.2f} s (launches {n_g}); --cpu exit {rc_c}, valid? "
+            f"{res_c['valid?']}, {t_c:.2f} s; 20d took "
+            f"{steps['20d']:.2f} s")
+
+        # ---- 20a. ingest -------------------------------------------------
+        whs = {}
+        for k, ch in kids.items():
+            rc, n, text, t_kid = ch.wait()
+            closed(ch)
+            assert rc == 0 and n == {"locf": 0, "seg_or": 0}, \
+                (k, rc, n, text[-2000:])
+            whs[k] = warehouse.open_if_exists(stores[k])
+            assert whs[k] is not None, k
+            log(f"[20a] python -m jepsen_tpu_torch --store-dir {k} obs "
+                f"ingest (19{k}'s store) in a child: exit 0 in "
+                f"{t_kid:.2f} s; "
+                + "; ".join(ln for ln in text.splitlines()
+                            if ln.startswith(("ingested:", "tables:"))))
+        t4 = time.perf_counter()
+        whs["18"] = warehouse.open_or_create(base18)
+        st18 = whs["18"].ingest_store(base18)
+        t_18 = time.perf_counter() - t4
+        assert st18["runs"] >= 1 and st18["events"] > 0, st18
+        assert st18["sessions"] >= 2, st18
+        log(f"[20a] 18's store (18a's live-checked run of {LIVE_TXNS} txns "
+            f"with its events.jsonl, 18b's run, their verifier sessions) "
+            f"ingested in process in {t_18:.2f} s: {st18}")
+        paths = {"a": stores["a"], "b": stores["b"], "18": base18}
+        counts = {}
+        for k, wh in whs.items():
+            counts[k] = wh.counts()
+            before = rows(warehouse.warehouse_path(paths[k]))
+            t5 = time.perf_counter()
+            again = wh.ingest_store(paths[k])
+            t_again = time.perf_counter() - t5
+            assert not moved(again) and wh.counts() == counts[k], \
+                (k, again)
+            assert rows(warehouse.warehouse_path(paths[k])) == before, k
+            t5 = time.perf_counter()
+            rc, text = run_cli(["--store-dir", paths[k], "obs", "rebuild"])
+            t_rebuild = time.perf_counter() - t5
+            assert rc == 0 and wh.counts() == counts[k], (k, rc, text)
+            wpath = warehouse.warehouse_path(paths[k])
+            size = sum(os.path.getsize(p) for p in (wpath, wpath + "-wal")
+                       if os.path.exists(p))
+            log(f"[20a] {k}: counts "
+                f"{ {t: c for t, c in counts[k].items() if c} }, "
+                f"{size} B with its log; a second ingest {t_again:.3f} s "
+                f"changed no row ({again}); obs rebuild {t_rebuild:.2f} s, "
+                f"the same counts")
+        # the children ran beside 20d: what 20a added after it
+        steps["20a after 20d"] = time.perf_counter() - t0 - steps["20d"]
+
+        # ---- 20b. SQL equals jsonl ----------------------------------------
+        t6 = time.perf_counter()
+        n_q = 0
+        grid = ("run", "key", "workload", "fault", "seed", "valid?",
+                "error", "degraded", "deadline", "dir", "ops", "wall_s",
+                "gen", "ts", "witness")
+        for k, spec_name in (("a", "production-traffic"),
+                             ("b", "models-matrix")):
+            path = ccore.index_path(spec_name, stores[k])
+            fast, slow = Index(path), Index(path, use_warehouse=False)
+            assert fast._warehouse() is not None, k
+            pairs = [("flips", fast.flips(), slow.flips()),
+                     ("witness_diffs", fast.witness_diffs(),
+                      slow.witness_diffs()),
+                     ("span_stats", fast.span_stats(), slow.span_stats()),
+                     ("forensic_records", fast.forensic_records(),
+                      slow.forensic_records()),
+                     ("verdict_counts", fast.verdict_counts(),
+                      slow.verdict_counts())]
+            for name in sorted(slow.span_stats()):
+                pairs.append((f"span_samples {name}",
+                              fast.span_samples(name),
+                              slow.span_samples(name)))
+                pairs.append((f"span_trend {name}", fast.span_trend(name),
+                              slow.span_trend(name)))
+            lf, ls = fast.latest_by_run(), slow.latest_by_run()
+            pairs.append(("latest_by_run",
+                          {r: {f: v.get(f) for f in grid}
+                           for r, v in lf.items()},
+                          {r: {f: v.get(f) for f in grid}
+                           for r, v in ls.items()}))
+            for what, a, b in pairs:
+                assert a == b, (k, what, a, b)
+            # the profile's times: the warehouse sums each run dir's
+            # times rounded to 6 decimals, the scan rounds its sum once
+            # (in both packages): within (dirs + 1) half units
+            pf, ps = fast.profile(), slow.profile()
+            dirs = len({r.get("dir") for r in slow.records if r.get("dir")})
+            keys = ("site", "shape", "host", "calls")
+            assert [{c: x[c] for c in keys} for x in pf] == \
+                [{c: x[c] for c in keys} for x in ps], k
+            worst = max((abs(x[c] - y[c]) for x, y in zip(pf, ps)
+                         for c in ("compile_s", "execute_s",
+                                   "device_dispatch_s")), default=0.0)
+            assert worst <= (dirs + 1) * 0.5e-6 + 1e-12, (k, worst, dirs)
+            n_q += len(pairs) + 1
+            log(f"[20b] 19{k}'s ledger ({len(slow.records)} records, "
+                f"{len(lf)} runs, {len(slow.span_stats())} span names, "
+                f"{len(pf)} profile rows): the warehouse's Index answers "
+                f"{len(pairs) + 1} queries as the jsonl scan does (the "
+                f"profile's times within {worst:.1e} s)")
+        ev_path = tel_stream.events_path(da) or os.path.join(
+            da, tel_stream.EVENTS_FILE)
+        evs = tel_stream.read_events(ev_path)
+        cut = evs[len(evs) // 2]["t"]
+        want = tel_stream.render_tail(
+            [e for e in evs if isinstance(e.get("t"), (int, float))
+             and e["t"] >= cut], limit=None) + "\n"
+        assert whs["18"].events_fresh(da, base18)
+        asked = []
+        real = warehouse.Warehouse.events_since
+
+        def counted(self, *a, **kw):
+            asked.append(a)
+            return real(self, *a, **kw)
+
+        warehouse.Warehouse.events_since = counted
+        try:
+            rc, text = run_cli(["tail", da, "--since", repr(cut)])
+        finally:
+            warehouse.Warehouse.events_since = real
+        assert rc == 0 and asked and text == want, (rc, len(asked))
+        steps["20b"] = time.perf_counter() - t6
+        log(f"[20b] tail DIR --since (half of 18a's {len(evs)} events) "
+            f"through the warehouse's event table: exit 0, "
+            f"{len(text.splitlines())} lines, equal to the stream scan; "
+            f"{n_q} Index answers and the tail in {steps['20b']:.2f} s")
+
+        # ---- 20c. a campaign on the card into a store with a warehouse --
+        t7 = time.perf_counter()
+        with open(specs["production-traffic"]) as f:
+            spec = json.load(f)
+        spec["name"] = OBS_CAMPAIGN
+        spec["workloads"] = [w for w in spec["workloads"]
+                             if w["name"] == "append"]
+        spec.pop("nemesis-schedule")
+        assert len(spec["workloads"]) == 3, spec["workloads"]
+        cbase = os.path.join(base, "c")
+        whc = warehouse.open_or_create(cbase)
+        zero()
+        summary = ccore.run_campaign(spec, cbase, workers=3)
+        n_c = count()
+        path = ccore.index_path(OBS_CAMPAIGN, cbase)
+        with open(path) as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+        assert len(recs) == 3 and all(r["valid?"] is True for r in recs), \
+            recs
+        assert whc.counts()["campaign_records"] == len(recs), whc.counts()
+        assert Index(path)._warehouse() is not None
+        assert n_c["locf"] > 0, n_c
+        t_camp = time.perf_counter() - t7
+        rc, text = run_cli(["--store-dir", cbase, "obs", "ingest"])
+        assert rc == 0, text
+        rc, text = run_cli(["--store-dir", cbase, "obs", "profile",
+                            OBS_CAMPAIGN])
+        assert rc == 0, text
+        with open(os.path.join(OUT_DIR, "20c_profile.txt"), "w") as f:
+            f.write(text)
+        rows = Index(path).profile()
+        timed = [x for x in rows if x["compile_s"] + x["execute_s"] > 0]
+        assert timed, rows
+        n_spans = 0
+        for rec in recs:
+            with open(os.path.join(cbase, rec["dir"],
+                                   "telemetry.json")) as f:
+                doc = json.load(f)
+            for sp in (x for root in doc["spans"]
+                       for x in walk_spans(root)):
+                dt = sp["attrs"].get("device_time_ns")
+                if dt is not None:
+                    assert 0 < dt <= sp["dur_ns"], sp
+                    n_spans += 1
+        assert n_spans > 0
+        steps["20c"] = time.perf_counter() - t7
+        log(f"[20c] campaign {OBS_CAMPAIGN} (19a's spec, its three append "
+            f"cells, no nemesis schedule) run in process on the card into "
+            f"a store with a warehouse: {summary['executed']} cells valid "
+            f"in {t_camp:.2f} s; the post-campaign ingest brought "
+            f"campaign_records to the ledger's {len(recs)}; obs ingest and "
+            f"obs profile exit 0: {len(rows)} site/shape rows "
+            f"({', '.join(sorted({x['site'] for x in rows}))}), "
+            f"{len(timed)} with time, from {n_spans} spans whose "
+            f"device_time_ns (CUDA events) is above 0 and at most their "
+            f"wall time; launches {n_c}; 20c took {steps['20c']:.2f} s")
+
+        # ---- 20e. alerts and the exposition ------------------------------
+        t8 = time.perf_counter()
+        assert not telemetry.enabled()
+        ev = opened(tel_stream.EventStream(os.path.join(base,
+                                                        "sampler.jsonl")))
+        tel_stream.ResourceSampler(ev, telemetry.registry()).sample()
+        closed(ev)
+        peak = alerts.collect_signals(base18, now=time.time())[
+            "gauge:device-memory-peak-bytes"]
+        assert peak > 0, peak
+        rule = {"name": OBS_RULE, "kind": "threshold", "severity": "page",
+                "signal": "gauge:device-memory-peak-bytes", "op": ">",
+                "value": float(int(peak) // 2), "for_s": 0.0,
+                "description": "the card's allocator peak past half of "
+                               "what the sampler read"}
+        srv = webhook_server()
+        th = threading.Thread(target=srv.serve_forever, daemon=True,
+                              name="obs-webhook")
+        th.start()
+        proxy = {k: os.environ.get(k) for k in ("NO_PROXY", "no_proxy")}
+        try:
+            # the sink posts to 127.0.0.1 whatever proxy the host names
+            for k in proxy:
+                os.environ[k] = "127.0.0.1,localhost"
+            url = f"http://127.0.0.1:{srv.server_address[1]}/alerts"
+            with open(os.path.join(base18, "alerts.json"), "w") as f:
+                json.dump({"rules": list(alerts.STOCK_PACK) + [rule],
+                           "sinks": [{"webhook": url}]}, f)
+            jpath = os.path.join(base, "alerts.json")
+            argv = ["--store-dir", base18, "obs", "alerts", "--eval",
+                    "--json", jpath]
+            evals = []
+            # a rule's `since` is its tick's time rounded to the
+            # millisecond (both packages), so a `for_s` 0 rule fires in
+            # its first tick only when that rounded down: at most one
+            # more tick fires it
+            for _ in range(2):
+                rc, _text = run_cli(argv)
+                with open(jpath) as f:
+                    doc = json.load(f)
+                evals.append(doc["states"][OBS_RULE]["state"])
+                if rc == 1:
+                    break
+            assert rc == 1 and evals[-1] == "firing", (rc, evals)
+            firing = sorted(r for r, d in doc["states"].items()
+                            if d["state"] == "firing")
+            assert firing == [OBS_RULE], doc["states"]
+            assert len(srv.posts) == 1 and doc["sends-ok"] == 1, \
+                (srv.posts, doc)
+            post = srv.posts[0]
+            assert (post["alertname"], post["state"]) == (OBS_RULE,
+                                                          "firing"), post
+            rc2, _text = run_cli(argv)
+            with open(jpath) as f:
+                doc2 = json.load(f)
+            assert rc2 == 1 and len(srv.posts) == 1, (rc2, srv.posts)
+            assert doc2["sends-ok"] == 1 and doc2["digest"] == doc["digest"]
+            replay = alerts.AlertJournal(alerts.alerts_path(base18))
+            assert replay.digest() == doc2["digest"], replay.digest()
+        finally:
+            for k, v in proxy.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            srv.shutdown()
+            srv.server_close()
+            th.join(10)
+        assert not th.is_alive()
+        text = prometheus.exposition(base=base18)
+        with open(os.path.join(OUT_DIR, "20e_metrics.txt"), "w") as f:
+            f.write(text)
+        samples = parse_exposition(text)
+        alert = ('ALERTS{alertname="%s",severity="page",state="firing"}'
+                 % OBS_RULE)
+        assert samples.get(alert) == 1.0, sorted(samples)[:40]
+        wh_gauges = sorted(x for x in samples
+                           if x.startswith("jepsen_warehouse_"))
+        assert 'jepsen_warehouse_runs{valid="true"}' in samples, wh_gauges
+        assert any(x.startswith("jepsen_warehouse_verifier_sessions")
+                   for x in wh_gauges), wh_gauges
+        steps["20e"] = time.perf_counter() - t8
+        log(f"[20e] obs alerts --eval on 18's store, the stock pack and "
+            f"{OBS_RULE} (gauge:device-memory-peak-bytes > "
+            f"{rule['value']:.0f}, the sampler's peak {peak:.0f} B): "
+            f"states {evals}, exit 1, one POST to the local webhook "
+            f"({post['alertname']} {post['state']}); again: exit 1, no new "
+            f"post, digest {doc2['digest']}, the journal's replay the "
+            f"same; the exposition ({len(text.splitlines())} lines, "
+            f"chiprun_out/20e_metrics.txt) parses as text format 0.0.4 "
+            f"with {len(samples)} samples, {len(wh_gauges)} warehouse "
+            f"gauges and the firing ALERTS series; 20e took "
+            f"{steps['20e']:.2f} s")
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    return time.perf_counter() - t0
+        shutil.rmtree(base18, ignore_errors=True)
+    t = time.perf_counter() - t20
+    log(f"[20] steps (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       sorted(steps.items()))
+        + f"; {t:.1f} s of the {OBS_BUDGET_S:.0f} s budget")
+    return t
 
 
 def suite_stages():

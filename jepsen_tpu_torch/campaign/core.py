@@ -19,7 +19,7 @@ into each cell's opts after `plan.expand` (beside ``"_base"``), so the
 CPU choice never changes a run id; `_auto_shrink` re-raises
 `KernelError` and `NoDeviceError`, so a card that cannot check makes
 the cell an attributable unknown naming the error instead of a quiet
-shrink failure; and there is no warehouse to keep warm after a run.
+shrink failure.
 """
 
 from __future__ import annotations
@@ -408,8 +408,20 @@ def run_campaign(spec: Union[str, dict], base: Optional[str] = None, *,
     # normal completion only: an interrupted fleet must leave its
     # in-flight worker state in live.json for the /live post-mortem
     hb.close()
-    # the JAX module ingests the new records into an existing warehouse
-    # here; the port has none yet, and the ledger is the source of truth
+    # keep an existing warehouse warm: ingest the records this fleet
+    # just appended (cursor-incremental, cheap), so summarize() and the
+    # next dashboard render take the SQL fast path.  No warehouse on
+    # this store -> nothing to do (cli obs ingest builds one).  The
+    # warehouse is a derived index with no device path: its failure is
+    # logged and the ledger stays the source of truth.
+    try:
+        from jepsen_tpu_torch.telemetry import warehouse as wmod
+
+        wh = wmod.open_if_exists(base)
+        if wh is not None:
+            wh.ingest_ledger(idx.path, base)
+    except Exception as e:  # noqa: BLE001 — derived index only
+        logger.warning("warehouse ingest after campaign failed: %s", e)
     return summarize(spec, base, executed=len(todo),
                      skipped=len(specs) - len(todo),
                      wall_s=time.monotonic() - t0, idx=idx)

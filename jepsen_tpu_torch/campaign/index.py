@@ -100,20 +100,27 @@ class Index:
     dashboard, `campaign status`) must never truncate, because their
     "torn line" may just be a live writer's append in flight.
 
-    Loading is LAZY, because in the JAX package the regression/trend
-    queries have a warehouse fast path (docs/TELEMETRY.md) that answers
-    from indexed SQL without parsing the jsonl.  The port has no
-    warehouse yet: every query goes through :meth:`_warehouse`, which
-    answers None, and then scans the ledger.
+    Loading is LAZY, because the regression/trend queries have a
+    warehouse fast path (docs/TELEMETRY.md): when ``<store>/
+    warehouse.sqlite`` exists and fully covers this ledger (ingest
+    cursor == file size), ``flips``/``regressions``/``span_stats``/
+    ``span_trend``/``witness_diffs``/``verdict_counts``/
+    ``latest_by_run`` answer from indexed SQL without parsing the
+    jsonl at all.  A stale or absent warehouse falls back to the scan
+    — the ledger stays the source of truth either way.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, use_warehouse: bool = True):
         self.path = path
+        self.use_warehouse = use_warehouse
         self._records: Optional[List[Dict[str, Any]]] = None
         self._load_lock = threading.Lock()
         #: byte offset of the last durable record seen at load; a
         #: resuming WRITER truncates to it before its first append
         self._good_bytes: Optional[int] = None
+        self._wh: Optional[tuple] = None  # cached (warehouse, rel)
+        self._wh_resolved = False
+        self._wh_compacted = False
 
     @property
     def records(self) -> List[Dict[str, Any]]:
@@ -123,12 +130,39 @@ class Index:
                     self._load()
         return self._records
 
+    #: queries a COMPACTED ledger's warehouse still answers exactly:
+    #: their rollup rows (flip_rollup / span_gen_rollup / the kept
+    #: witness records) survive compaction untouched.  Everything else
+    #: lost its raw rows and must fall back to the jsonl scan.
+    _COMPACT_SAFE = frozenset({"flips", "span_trend", "witness_diffs"})
+
     def _warehouse(self, query: Optional[str] = None):
         """(warehouse, ledger-rel) when the SQL fast path may answer
-        for this ledger, else None.  The port has no warehouse yet, so
-        every query answers from the jsonl scan — the JAX package's own
-        answer for a store without ``warehouse.sqlite``."""
-        return None
+        for this ledger, else None.  Resolved (freshness-checked) once
+        per Index and cached — the same point-in-time semantics as the
+        one-shot jsonl load — and invalidated by :meth:`append`, which
+        makes the warehouse stale by definition.  ``query`` gates
+        per-query on compaction: once a ledger's raw rows were folded
+        past the generation horizon, only the ``_COMPACT_SAFE`` queries
+        keep the SQL path.  The warehouse is a derived index, so an
+        error opening it sends the query to the jsonl scan."""
+        if not self.use_warehouse:
+            return None
+        if not self._wh_resolved:
+            try:
+                from jepsen_tpu_torch.telemetry import warehouse as wmod
+
+                self._wh = wmod.for_ledger(self.path)
+                self._wh_compacted = bool(
+                    self._wh is not None and
+                    self._wh[0].ledger_compacted(self._wh[1]))
+            except Exception:  # noqa: BLE001 — fast path, never fail
+                self._wh = None
+                self._wh_compacted = False
+            self._wh_resolved = True
+        if self._wh_compacted and query not in self._COMPACT_SAFE:
+            return None
+        return self._wh
 
     # -- persistence --------------------------------------------------------
 
@@ -179,6 +213,9 @@ class Index:
             f.flush()
             os.fsync(f.fileno())
         recs.append(rec)
+        # the append outdated any warehouse coverage of this ledger:
+        # re-resolve (and re-check freshness) on the next query
+        self._wh, self._wh_resolved = None, False
         return rec
 
     # -- resume -------------------------------------------------------------

@@ -19,16 +19,19 @@ A db suite calls::
 
 The subcommands are ``test``, ``test-all``, ``analyze``, ``trace DIR
 [--top N]`` (a stored run's telemetry), ``tail DIR [-f] [-n N]
-[--since T]`` (its flight recorder; ``--since`` filters the stream
-itself, without the JAX module's warehouse fast path), ``shrink DIR``
-(`minimize.shrink`: an invalid run cut down to a minimal witness) and
-``campaign run|status|report SPEC`` (`campaign`: a matrix of workload x
-fault x seed with a resumable verdict index).  ``--telemetry``
-collects spans and metrics into the run's store dir; ``--profile-dir
-DIR`` also writes a ``torch.profiler`` trace there.  The JAX module's
-``serve``, ``obs``, ``fleet`` and ``cache`` wait for the modules they
-drive.  ``--cpu`` puts ``"cpu"`` in the options as the checkers'
-device (``opts["cpu"]``); without it the checkers run on the CUDA card
+[--since T]`` (its flight recorder; ``--since`` answers from the
+store's warehouse when it covers the run, else from the stream),
+``shrink DIR`` (`minimize.shrink`: an invalid run cut down to a minimal
+witness), ``campaign run|status|report SPEC`` (`campaign`: a matrix of
+workload x fault x seed with a resumable verdict index) and ``obs
+ingest|rebuild|gate|sql|bench|timeline|profile|diff|gc|alerts|compact``
+(the sqlite telemetry warehouse over the store, its queries and the
+alert engine).  ``--telemetry`` collects spans and metrics into the
+run's store dir; ``--profile-dir DIR`` also writes a ``torch.profiler``
+trace there.  The JAX module's ``serve``, ``fleet`` and ``cache`` wait
+for the modules they drive.  ``--cpu`` puts ``"cpu"`` in the options as
+the checkers' device (``opts["cpu"]``); without it the checkers run on
+the CUDA card
 and, with no card, a test records ``valid? unknown`` naming
 `NoDeviceError`, and ``shrink`` and ``campaign run`` exit 1 naming it
 (a campaign's cells are indexed as unknowns naming it).
@@ -338,13 +341,32 @@ def parse_since(spec: str, now: Optional[float] = None) -> float:
                      "epoch seconds, or YYYY-MM-DDTHH:MM:SS UTC)")
 
 
+def _warehouse_events(d: str, since: Optional[float]):
+    """The ``tail --since`` warehouse fast path: when a warehouse
+    exists two levels up (the store base) and fully covers this dir's
+    event stream, answer from the indexed event table.  None -> the
+    caller falls back to the stream scan."""
+    from .telemetry import warehouse as wmod
+
+    base = os.path.dirname(os.path.dirname(os.path.abspath(d)))
+    try:
+        wh = wmod.open_if_exists(base)
+        if wh is None or not wh.events_fresh(d, base):
+            return None
+        return wh.events_since(d, base, since)
+    except Exception:  # noqa: BLE001 — fast path only
+        return None
+
+
 def tail_cmd(opts: argparse.Namespace) -> int:
     """`tail <run-dir>` — render a run's streamed events.jsonl as
     human-readable progress lines; ``-f`` follows a live run; `--since
-    <ts|duration>` filters to recent events (a scan of the stream: the
-    JAX module's warehouse fast path waits for the port's warehouse).
-    The footer names the still-open span chain and the final counter
-    values — the post-mortem view for killed/wedged runs."""
+    <ts|duration>` filters to recent events (served from the warehouse
+    event table when one covers the run, stream scan otherwise).  The
+    warehouse is a derived index with no device path, so an error
+    reading it falls back to the scan.  The footer names the still-open
+    span chain and the final counter values — the post-mortem view for
+    killed/wedged runs."""
     import time as _time
 
     from .telemetry import stream as tel_stream
@@ -374,7 +396,12 @@ def tail_cmd(opts: argparse.Namespace) -> int:
                 and e["t"] >= since]
 
     if not getattr(opts, "follow", False):
-        evs = since_filter(tel_stream.read_events(path))
+        evs = None
+        if since is not None and os.path.isdir(opts.dir) and \
+                os.path.basename(path) == tel_stream.EVENTS_FILE:
+            evs = _warehouse_events(opts.dir, since)
+        if evs is None:
+            evs = since_filter(tel_stream.read_events(path))
         print(tel_stream.render_tail(evs, limit=opts.lines))
         return 0
     cursor = None
@@ -412,11 +439,356 @@ def tail_cmd(opts: argparse.Namespace) -> int:
 
 
 
+def _render_timeline(tl: Dict[str, Any]) -> str:
+    """One stitched cross-host trace as a text waterfall:
+    ordered, host-attributed segments with offsets from the trace's
+    first event and proportional duration bars.  Geometry comes from
+    the shared `Warehouse.timeline_layout` (one layout, two
+    renderers), which is empty-safe for the only-orphans case."""
+    from .telemetry.warehouse import Warehouse
+
+    lay = Warehouse.timeline_layout(tl)
+    spans, hosts, wall = lay["spans"], lay["hosts"], lay["wall"]
+    lines = [f"trace {tl['trace-id']} — run {tl.get('run') or '?'} "
+             f"({len(spans)} spans, {len(hosts) or 1} host(s), "
+             f"{wall:.3f}s wall)"]
+    if spans:
+        lines.append(f"{'host':<14} {'segment':<28} {'start':>9} "
+                     f"{'dur':>9}  timeline")
+    width = 32
+    for s in spans:
+        left = int(round(s["frac_left"] * width))
+        bar = " " * min(left, width - 1) + "#" * max(
+            1, int(round(s["frac_width"] * width)))
+        lines.append(
+            f"{str(s.get('host') or '-'):<14} "
+            f"{str(s.get('name')):<28} {s['off']:>8.3f}s "
+            f"{s.get('dur_s') or 0.0:>8.3f}s  "
+            f"|{bar[:width]:<{width}}|")
+    orphans = tl.get("orphans") or []
+    if orphans:
+        lines.append("")
+        lines.append(f"ORPHAN spans ({len(orphans)} recorded against "
+                     "this run under a DIFFERENT trace id):")
+        for s in orphans:
+            lines.append(f"  {s.get('trace_id')} {s.get('name')} "
+                         f"host={s.get('host')}")
+    return "\n".join(lines)
+
+
+def obs_cmd(opts: argparse.Namespace) -> int:
+    """`obs ingest|rebuild|gate|sql|bench|timeline|profile|diff` — the
+    sqlite telemetry warehouse over the store dir (docs/TELEMETRY.md):
+    build/refresh it, query it, gate span regressions statistically,
+    render stitched cross-host run timelines, and run the performance
+    observatory (device-call profiles, cross-generation forensics)."""
+    import glob as _glob
+
+    from .telemetry import warehouse as wmod
+
+    base = opts.store_dir
+    if opts.action in ("ingest", "rebuild"):
+        wh = wmod.open_or_create(base)
+        stats = (wh.rebuild(base) if opts.action == "rebuild"
+                 else wh.ingest_store(base))
+        for pat in opts.bench or []:
+            paths = sorted(_glob.glob(pat)) or [pat]
+            for p in paths:
+                if wh.ingest_bench_file(p):
+                    stats["bench"] = stats.get("bench", 0) + 1
+                else:
+                    print(f"obs: bench file skipped: {p}",
+                          file=sys.stderr)
+        counts = wh.counts()
+        print(f"warehouse: {wmod.warehouse_path(base)}")
+        print("ingested: " + ", ".join(
+            f"{v} {k}" for k, v in sorted(stats.items())))
+        print("tables: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(counts.items()) if v))
+        if opts.bench and not stats.get("bench"):
+            # an explicitly requested bench ingest that landed nothing
+            # (typo'd glob, unparsable files) must not leave CI green
+            # while the bench series silently stops updating
+            print("obs: --bench matched/ingested no files",
+                  file=sys.stderr)
+            return 2
+        return 0
+    if opts.action == "gc":
+        # store retention: archive
+        # landed run dirs past --retention to _archive/ — needs no
+        # warehouse (it operates on the store itself; the next ingest
+        # simply no longer sees the archived dirs)
+        from . import store as store_mod
+
+        retention = getattr(opts, "retention", None)
+        if retention is None:
+            print("obs: gc needs --retention <seconds>",
+                  file=sys.stderr)
+            return 2
+        stats = store_mod.gc_runs(base, retention_s=float(retention))
+        print(f"obs gc: archived {stats['archived']} run dir(s) to "
+              f"{store_mod.archive_dir(base)} "
+              f"({stats['kept']} kept within retention, "
+              f"{stats['skipped']} unlanded skipped)")
+        return 0
+    if opts.action in ("gate", "profile", "diff"):
+        # campaign analytics: Index answers from the warehouse when it
+        # is fresh and falls back to the jsonl scan otherwise, so these
+        # work (identically) with or without an ingested warehouse
+        return _obs_campaign_cmd(opts, base)
+    if opts.action == "alerts":
+        # the watchtower: warehouse signals are best-effort,
+        # so this works on a store with no warehouse at all
+        return _obs_alerts_cmd(opts, base)
+    wh = wmod.open_if_exists(base)
+    if wh is None:
+        print(f"obs: no warehouse at {wmod.warehouse_path(base)} "
+              "(run `obs ingest` first)", file=sys.stderr)
+        return 2
+    if opts.action == "compact":
+        cdir = os.path.join(base, "campaigns")
+        want = opts.campaign or opts.query
+        names = ([want] if want else sorted(
+            fn[:-len(".jsonl")] for fn in (
+                os.listdir(cdir) if os.path.isdir(cdir) else ())
+            if fn.endswith(".jsonl")))
+        if not names:
+            print("obs: no campaign ledgers to compact", file=sys.stderr)
+            return 2
+        total = {"gens-compacted": 0, "dropped-records": 0,
+                 "dropped-spans": 0, "kept-witnesses": 0}
+        for name in names:
+            path = os.path.join(cdir, f"{name}.jsonl")
+            if not os.path.exists(path):
+                print(f"obs: no ledger for campaign {name!r}",
+                      file=sys.stderr)
+                return 2
+            stats = wh.compact_ledger(path, base,
+                                      keep_gens=opts.keep_gens)
+            print(f"compact {name}: " + ", ".join(
+                f"{v} {k}" for k, v in sorted(stats.items())))
+            for k, v in stats.items():
+                total[k] = total.get(k, 0) + v
+        if len(names) > 1:
+            print("total: " + ", ".join(
+                f"{v} {k}" for k, v in sorted(total.items())))
+        return 0
+    if opts.action == "bench":
+        rows = wh.bench_series()
+        if not rows:
+            print("obs: no bench results ingested (try `obs ingest "
+                  "--bench 'BENCH_r0*.json'`)", file=sys.stderr)
+            return 2
+        print(f"{'source':<24} {'value':>12} {'unit':<10} "
+              f"{'vs_baseline':>11} {'n_txns':>9} backend")
+        for r in rows:
+            print(f"{str(r['source']):<24} {r['value'] or 0:>12.1f} "
+                  f"{str(r['unit']):<10} {r['vs_baseline'] or 0:>11.3f} "
+                  f"{r['n_txns'] or 0:>9} {r['backend']}")
+        return 0
+    if opts.action == "timeline":
+        if not opts.query:
+            print("obs: timeline needs a run id (or 32-hex trace id)",
+                  file=sys.stderr)
+            return 2
+        tl = wh.trace_timeline(opts.query)
+        if not tl["spans"] and not tl["orphans"]:
+            print(f"obs: no trace spans for {opts.query!r} (run "
+                  "`obs ingest` after the run lands; traced runs need "
+                  "telemetry or a fleet ledger)", file=sys.stderr)
+            return 2
+        print(_render_timeline(tl))
+        # orphans are a stitching failure worth a red exit: the run's
+        # artifacts disagree about which trace they belong to
+        return 1 if tl["orphans"] else 0
+    if opts.action == "sql":
+        if not opts.query:
+            print("obs: sql needs a query argument", file=sys.stderr)
+            return 2
+        try:
+            cols, rows = wh.query(opts.query)
+        except Exception as e:  # noqa: BLE001 — sqlite/read-only errors
+            print(f"obs: sql failed: {e}", file=sys.stderr)
+            return 2
+        print("\t".join(cols))
+        for r in rows:
+            print("\t".join(str(v) for v in r))
+        return 0
+    print(f"obs: unknown action {opts.action!r}", file=sys.stderr)
+    return 2
+
+
+def _obs_alerts_cmd(opts: argparse.Namespace, base: str) -> int:
+    """`obs alerts` — render the watchtower's durable alert state
+    (docs/ALERTS.md).  Plain: replay <store>/alerts.jsonl read-only.
+    With --eval: run one engine tick against the live registry,
+    campaign heartbeats, store counters, and warehouse rollups first
+    (journaling transitions + notifying sinks — the headless cron
+    form of the autopilot's alert tick).  Exit 1 while anything is
+    firing, so CI and cron wrappers get the red exit for free."""
+    import json as _json
+
+    from .telemetry import alerts as alerts_mod
+
+    if opts.alerts_eval:
+        from .telemetry import warehouse as wmod
+
+        eng = alerts_mod.AlertEngine(base)
+        eng.evaluate(warehouse=wmod.open_if_exists(base))
+        jr = eng.journal
+    else:
+        path = alerts_mod.alerts_path(base)
+        if not os.path.exists(path):
+            print(f"obs: no alert journal at {path} (the autopilot's "
+                  "alert tick or `obs alerts --eval` creates it)",
+                  file=sys.stderr)
+            return 2
+        jr = alerts_mod.AlertJournal(path)
+    order = {"firing": 0, "pending": 1, "resolved": 2}
+    rows = sorted(jr.states.items(),
+                  key=lambda kv: (order.get(kv[1].get("state"), 3),
+                                  kv[0]))
+    if opts.json_out:
+        doc = {"digest": jr.digest(),
+               "sends-ok": jr.sends_ok,
+               "sends-failed": jr.sends_failed,
+               "states": {r: dict(d) for r, d in rows}}
+        if opts.json_out == "-":
+            _json.dump(doc, sys.stdout, indent=2, sort_keys=True)
+            print()
+        else:
+            with open(opts.json_out, "w") as f:
+                _json.dump(doc, f, indent=2, sort_keys=True)
+            print(f"report written: {opts.json_out}")
+    firing = [r for r, d in rows if d.get("state") == "firing"]
+    if opts.json_out != "-":
+        print(f"alerts: {len(firing)} firing, "
+              f"{sum(1 for _r, d in rows if d.get('state') == 'pending')} "
+              f"pending ({len(rows)} rule(s) journaled) · digest "
+              f"{jr.digest()} · notifications {jr.sends_ok} ok / "
+              f"{jr.sends_failed} failed")
+        if rows:
+            w = max(len(r) for r, _d in rows)
+            print(f"{'rule':<{w}} {'severity':<8} {'state':<8} "
+                  f"{'value':>12} since")
+            for r, d in rows:
+                v = d.get("value")
+                print(f"{r:<{w}} {str(d.get('severity')):<8} "
+                      f"{str(d.get('state')):<8} "
+                      f"{(f'{v:.4g}' if isinstance(v, (int, float)) else '-'):>12} "
+                      f"{d.get('since')}")
+    return 1 if firing else 0
+
+
+def _obs_campaign_cmd(opts: argparse.Namespace, base: str) -> int:
+    """`obs gate|profile|diff` — the campaign-scoped observatory
+    queries (docs/TELEMETRY.md "Performance observatory").  Exit codes:
+    0 pass / rendered, 1 regression, 2 cannot evaluate; for a multi-
+    span gate the rc is the WORST single-span verdict (regression >
+    insufficient-data > pass)."""
+    import json as _json
+
+    from .campaign.core import index_path
+    from .campaign.index import Index
+    from .telemetry import forensics
+    from .telemetry import gate as gate_mod
+
+    campaign = opts.campaign or opts.query
+    if not campaign:
+        print(f"obs: {opts.action} needs a campaign (positional or "
+              "--campaign)", file=sys.stderr)
+        return 2
+    if opts.action == "profile":
+        rows = Index(index_path(campaign, base)).profile()
+        if not rows:
+            print(f"obs: no device-call profile for campaign "
+                  f"{campaign!r} (profiles come from runs recorded "
+                  "with telemetry; re-run `obs ingest` after runs "
+                  "land)", file=sys.stderr)
+            return 2
+        print(f"obs profile: campaign {campaign} "
+              f"({len(rows)} site/shape cells)")
+        print(forensics.render_profile(rows))
+        return 0
+    if opts.action == "diff":
+        report = forensics.run_diff(
+            base, campaign, from_gen=opts.from_gen, to_gen=opts.to_gen,
+            spans=opts.span or None, alpha=opts.alpha,
+            threshold=opts.threshold, min_runs=opts.min_runs)
+        if opts.json_out == "-":
+            # machine form on stdout: the human
+            # rendering moves to stderr so `obs diff --json - | jq`
+            # sees pure JSON
+            print(forensics.render_diff(report), file=sys.stderr)
+            _json.dump(report, sys.stdout, indent=2, sort_keys=True)
+            print()
+        else:
+            print(forensics.render_diff(report))
+            if opts.json_out:
+                with open(opts.json_out, "w") as f:
+                    _json.dump(report, f, indent=2, sort_keys=True)
+                print(f"report written: {opts.json_out}")
+        return {"pass": 0, "regression": 1}.get(report.get("status"), 2)
+    # gate: repeated --span flags, each an exact name or a * glob
+    if not opts.span:
+        print("obs: gate needs --campaign and --span", file=sys.stderr)
+        return 2
+    idx = Index(index_path(campaign, base))
+    records = idx.forensic_records()
+    known = {n for _g, sp, _p, _c in records for n in sp}
+    wanted = forensics.resolve_spans(known, opts.span)
+    if not wanted:
+        print(f"obs: --span {opts.span} matched no recorded span of "
+              f"campaign {campaign!r} (known: "
+              f"{', '.join(sorted(known)) or 'none'})", file=sys.stderr)
+        return 2
+    statuses = []
+    results = []
+    out = sys.stderr if opts.json_out == "-" else sys.stdout
+    for i, span in enumerate(wanted):
+        res = gate_mod.run_gate(
+            base, campaign, span,
+            from_gen=opts.from_gen, to_gen=opts.to_gen,
+            alpha=opts.alpha, threshold=opts.threshold,
+            min_runs=opts.min_runs)
+        statuses.append(res.get("status"))
+        if i:
+            print(file=out)
+        print(gate_mod.render_gate(res), file=out)
+        entry = None
+        if opts.explain and res.get("status") == "regression":
+            entry = forensics.attribute_span(
+                span, records, res["from-gen"], res["to-gen"])
+            for line in forensics.render_attribution(entry):
+                print("  " + line, file=out)
+        results.append({"span": span, **res,
+                        **({"attribution": entry} if entry else {})})
+    if opts.json_out:
+        # machine form: '-' puts pure JSON on
+        # stdout for webhook payloads / CI without a tempfile
+        report = {"campaign": campaign,
+                  "status": ("regression" if "regression" in statuses
+                             else "pass" if all(s == "pass"
+                                                for s in statuses)
+                             else "insufficient-data"),
+                  "gates": results}
+        if opts.json_out == "-":
+            _json.dump(report, sys.stdout, indent=2, sort_keys=True)
+            print()
+        else:
+            with open(opts.json_out, "w") as f:
+                _json.dump(report, f, indent=2, sort_keys=True)
+            print(f"report written: {opts.json_out}")
+    if "regression" in statuses:
+        return 1
+    return 0 if all(s == "pass" for s in statuses) else 2
+
+
 def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                     checker_fn: Optional[Callable] = None,
                     prog: str = "jepsen-tpu-torch"):
     """Build the standard CLI: `test`, `analyze`, `trace`, `tail`,
-    `shrink` and `campaign` subcommands.  Returns (parser, dispatch)."""
+    `shrink`, `campaign` and `obs` subcommands.  Returns (parser, dispatch)."""
     p = base_parser(prog)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -477,6 +849,68 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                      help="re-shrink even when a cached witness "
                           "matches the history digest")
 
+    po = sub.add_parser("obs",
+                        help="telemetry warehouse: ingest/rebuild the "
+                             "sqlite index over the store, query it, "
+                             "gate span regressions, and render "
+                             "stitched cross-host run timelines "
+                             "(docs/TELEMETRY.md)")
+    po.add_argument("action",
+                    choices=("ingest", "rebuild", "gate", "sql",
+                             "bench", "timeline", "profile", "diff",
+                             "gc", "alerts", "compact"))
+    po.add_argument("query", nargs="?",
+                    help="SQL for the sql action (read-only); run id "
+                         "or 32-hex trace id for the timeline action; "
+                         "campaign name for profile/diff")
+    po.add_argument("--bench", action="append", metavar="GLOB",
+                    help="BENCH json file(s) to ingest alongside the "
+                         "store (repeatable; glob ok)")
+    po.add_argument("--campaign", help="gate/profile/diff: campaign "
+                                       "name")
+    po.add_argument("--span", action="append",
+                    help="gate/diff: span site(s) to compare "
+                         "(repeatable; * globs match known spans, "
+                         "e.g. --span 'check:*')")
+    po.add_argument("--explain", action="store_true",
+                    help="gate: on regression, attribute the delta "
+                         "across phase buckets and forensic counters")
+    po.add_argument("--json", dest="json_out", metavar="PATH",
+                    help="gate/diff/alerts: also write the full "
+                         "report as a JSON artifact; '-' writes it to "
+                         "stdout (webhook payloads / CI embedding "
+                         "without a tempfile round-trip)")
+    po.add_argument("--eval", dest="alerts_eval", action="store_true",
+                    help="alerts: run one evaluation tick (registry + "
+                         "heartbeats + warehouse rollups) against the "
+                         "store's rule pack, journaling transitions "
+                         "and notifying sinks, before rendering")
+    po.add_argument("--keep-gens", dest="keep_gens", type=int,
+                    default=2,
+                    help="compact: generations of raw rows to keep "
+                         "live per ledger (default 2); older fold "
+                         "into bounded summary rows")
+    po.add_argument("--from-gen", dest="from_gen", default=None,
+                    help="gate: baseline generation (default: "
+                         "second-latest)")
+    po.add_argument("--to-gen", dest="to_gen", default=None,
+                    help="gate: candidate generation (default: latest)")
+    po.add_argument("--alpha", type=float, default=0.05,
+                    help="gate: Mann-Whitney one-sided significance "
+                         "level (default 0.05)")
+    po.add_argument("--threshold", type=float, default=0.25,
+                    help="gate: hard relative p95 regression bound "
+                         "(default 0.25 = +25%%)")
+    po.add_argument("--min-runs", dest="min_runs", type=int, default=3,
+                    help="gate: minimum runs per generation; fewer "
+                         "exits 2 (cannot evaluate), never a silent "
+                         "pass/fail")
+    po.add_argument("--retention", type=float, default=None,
+                    metavar="SECONDS",
+                    help="gc: archive landed run dirs older than this "
+                         "to <store>/_archive/ (they leave store "
+                         "scans and future warehouse ingests)")
+
     pc = sub.add_parser("campaign",
                         help="run/inspect a fleet of tests from a "
                              "campaign spec (docs/CAMPAIGN.md)")
@@ -515,6 +949,8 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
             return trace_cmd(opts)
         if opts.cmd == "tail":
             return tail_cmd(opts)
+        if opts.cmd == "obs":
+            return obs_cmd(opts)
         p.error(f"unknown command {opts.cmd}")
         return 2
 

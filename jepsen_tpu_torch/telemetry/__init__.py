@@ -43,6 +43,9 @@ from .stream import Heartbeat, HttpHeartbeat, read_events
 from .stream import attach as attach_stream
 from .stream import event as stream_event
 
+# NOTE: gate, prometheus, alerts and warehouse are sibling modules
+# imported lazily by their consumers (cli obs, Index fast paths) —
+# importing sqlite3 here would tax every `import jepsen_tpu_torch`.
 from .spans import (
     NOOP,
     PHASE_BUCKETS,

@@ -10,10 +10,10 @@ attribution instead of a hand-run bench.
 
 Parity contract: every function here is PURE over the
 ``(gen, spans, phases, counters)`` record shape that BOTH backends
-produce (``Index.forensic_records`` off the raw jsonl, and in the JAX package
-``Warehouse.forensic_records`` off SQL), so a warehouse fast path and
-the jsonl scan reach the identical verdict — the same discipline as
-``index.witness_pair_diffs``.  The port has no warehouse yet.
+produce (``Index.forensic_records`` off the raw jsonl,
+``Warehouse.forensic_records`` off SQL), so the warehouse fast path and
+the jsonl scan fallback reach the identical verdict — the same
+discipline as ``index.witness_pair_diffs``.
 
 Attribution rule: per generation, a span's MEAN duration over the
 records that carry it; the delta between generations is split across

@@ -128,7 +128,7 @@ def run_gate(base: str, campaign: str, span: str, *,
              alpha: float = 0.05, threshold: float = 0.25,
              min_runs: int = 3) -> Dict[str, Any]:
     """Gate one span site of one campaign: pull its (gen, duration)
-    samples (a scan of the campaign's jsonl ledger), pick
+    samples (warehouse-backed when fresh, jsonl scan otherwise), pick
     the generation pair (default: the two most recent), and decide.
     The result map carries ``status`` as in :func:`gate_samples`."""
     from jepsen_tpu_torch.campaign.core import index_path

@@ -70,8 +70,8 @@ def test_parse_concurrency_equal_to_jax():
 def test_subcommands_and_demo_checkers(tmp_path, capsys):
     p, _ = tcli.test_all_cmd(DEMOS)
     sub = next(a for a in p._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == ["analyze", "campaign", "shrink", "tail",
-                                   "test", "test-all", "trace"]
+    assert sorted(sub.choices) == ["analyze", "campaign", "obs", "shrink",
+                                   "tail", "test", "test-all", "trace"]
     rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "nope"])
     assert rc == 2 and "nope" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2

@@ -11,6 +11,7 @@ leaves no thread behind whether its workload completes or raises.  Every
 check waits with a bound and then asserts.
 """
 
+import io
 import os
 import random
 import signal
@@ -72,13 +73,59 @@ def test_reaper_finds_and_kills_a_daemon(tmp_path, monkeypatch):
     try:
         assert pid in cs.marked_pids(tag)
         found = cs.reap(tag)
-        assert [p for p, _ in found] == [pid]
+        assert [p for p, _ in found] == [pid], found
         assert "sleep 300" in found[0][1]
         assert _gone(tag)
         assert not _alive(pid)
     finally:
         if _alive(pid):
             os.kill(pid, signal.SIGKILL)
+
+
+def _fake_proc(monkeypatch, pid, empty_reads, env_end):
+    """Make `chip_smoke` read ``/proc/<pid>/environ`` empty the first
+    `empty_reads` times, with ``env_end`` in its stat set to `env_end`
+    meanwhile; returns the read counts."""
+    real_open = open
+    with open(f"/proc/{pid}/stat") as f:
+        head, tail = f.read().rsplit(") ", 1)
+    fields = tail.split()
+    fields[48] = str(env_end)
+    stat = f"{head}) {' '.join(fields)}\n"
+    reads = {"environ": 0}
+
+    def fake_open(path, *a, **kw):
+        if path == f"/proc/{pid}/environ":
+            reads["environ"] += 1
+            if reads["environ"] <= empty_reads:
+                return io.BytesIO(b"")
+        elif path == f"/proc/{pid}/stat" and reads["environ"] <= empty_reads:
+            return io.StringIO(stat)
+        return real_open(path, *a, **kw)
+
+    monkeypatch.setattr(cs, "open", fake_open, raising=False)
+    return reads
+
+
+def test_proc_bytes_reads_a_process_mid_exec_again(monkeypatch):
+    """A process between two ``execve`` calls reads an empty environ
+    while its new image's ``env_end`` is still 0: the reaper reads it
+    again until the image is set up, and so finds its mark."""
+    pid = os.getpid()
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        want = f.read()
+    reads = _fake_proc(monkeypatch, pid, empty_reads=3, env_end=0)
+    assert cs._proc_bytes(pid, "environ") == want and want
+    assert reads["environ"] == 4
+
+
+def test_proc_bytes_takes_a_settled_empty_read_once_more(monkeypatch):
+    """An empty read of a process whose image is set up (``env_end`` not
+    0) is taken once more, and then stands."""
+    pid = os.getpid()
+    reads = _fake_proc(monkeypatch, pid, empty_reads=10, env_end=12345)
+    assert cs._proc_bytes(pid, "environ") == b""
+    assert reads["environ"] == 2
 
 
 def test_guarded_fails_on_a_left_process(tmp_path, capsys):

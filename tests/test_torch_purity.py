@@ -4,7 +4,9 @@ running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
 the queue checks, `stream.check_stored`, `batch.check_batch`, a
 telemetric, live-checked `core.run` of the `append` demo, and the CLI's
 `shrink` of a bank run and `campaign run` of bank, kafka and noop cells
-with auto-shrink, all on the CPU) in a fresh
+with auto-shrink, then `obs ingest` and `obs alerts --eval` of that
+store, a warehouse-backed `Index`, the Prometheus exposition, the Knossos
+CLI and `repl.recheck`, all on the CPU) in a fresh
 interpreter must load neither `jax` nor `jepsen_tpu`.  The walk imports
 every module, the telemetry and verifier packages included.  A file of its own, so that the test run
 spreads its child process over its own worker.
@@ -147,6 +149,27 @@ with tempfile.TemporaryDirectory() as d:
                                     "run", spec]) in (0, 1)
     assert tcli.run(tmain.suite(), ["--store-dir", d, "campaign",
                                     "status", spec]) == 0
+    # the observatory over that store, the Knossos CLI and the REPL
+    from jepsen_tpu_torch import repl
+    from jepsen_tpu_torch.campaign.index import Index
+    from jepsen_tpu_torch.checkers.knossos import cli as kcli
+    from jepsen_tpu_torch.telemetry import alerts, prometheus, warehouse
+    assert tcli.run(tmain.suite(), ["--store-dir", d, "obs", "ingest"]) == 0
+    assert warehouse.open_if_exists(d).counts()["campaign_records"] == 3
+    idx = Index(os.path.join(d, "campaigns", "purity.jsonl"))
+    assert idx._warehouse() is not None and idx.verdict_counts()
+    assert tcli.run(tmain.suite(), ["--store-dir", d, "obs", "alerts",
+                                    "--eval"]) in (0, 1)
+    assert alerts.AlertJournal(alerts.alerts_path(d)).digest()
+    assert "jepsen_warehouse_runs" in prometheus.exposition(base=d)
+    hp = os.path.join(d, "h.json")
+    with open(hp, "w") as f:
+        json.dump([{"type": "invoke", "process": 0, "f": "write", "value": 1},
+                   {"type": "ok", "process": 0, "f": "write", "value": 1}], f)
+    assert kcli.main([hp, "--model", "register", "--cpu"]) == 0
+    rt = repl.latest(None, base=d)
+    rr = repl.recheck(rt, api.Stats())["results"]
+    assert 0 < rr["count"] <= len(repl.history(rt)), rr
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
