@@ -250,7 +250,7 @@ Phases, each asserting; any failure exits non-zero:
         the full cap;
      b. (after 16c, whose CPU twins then run beside it) `python -m
         jepsen_tpu_torch.dbs.sqlite test-all --only append` and `--only
-        wr`, `-c 10 --ops 10000`: exit 0 and valid; each
+        wr`, `-c 10 --ops 7500`: exit 0 and valid; each
         run's workload rate, `save_0`, the check and its part on the
         card, launches (LOCF in the append check), the backward edges
         and largest component of each projection, peak device memory;
@@ -259,9 +259,9 @@ Phases, each asserting; any failure exits non-zero:
         blocked backups under strict serializability, 120 ops, first
         (its CPU twin is the phase's longest): exit 1, valid? false;
         `python -m jepsen_tpu_torch.dbs.regd_suite test-all --only
-        append -n n1 -n n2 -n n3 --time-limit 20`: valid; the same run
+        append -n n1 -n n2 -n n3 --time-limit 15`: valid; the same run
         with the primary killed and restarted between three phases of
-        1,650 ops: valid, with ok txns on both sides of the restart;
+        1,100 ops: valid, with ok txns on both sides of the restart;
         each line as 16b's, with the fail and info completions;
      d. `perf()`, `html_timeline()` and `Stats` composed on 16c's
         stored run: the size of `timeline.html` in the store and
@@ -404,6 +404,44 @@ Phases, each asserting; any failure exits non-zero:
         digest; `prometheus.exposition` of the store parses line by line
         as text format 0.0.4 with the warehouse's rollup gauges and the
         firing ``ALERTS`` series (`chiprun_out/20e_metrics.txt`).
+ 21. the fleet on the card (`start_fleet`, `check_fleet`), logged against
+     a budget of `FLEET_BUDGET_S` of wall time, each step timed:
+     a. started after phase 17, beside phases 18-20: `python -m
+        jepsen_tpu_torch fleet serve SPEC --until-done --lease 3` on a
+        port the OS reports free, SPEC `specs/production-traffic.json`
+        as shipped (schedule, seed, opts) cut to its seven append, bank
+        and wr cells, and two `fleet work --backend cuda --upload`
+        children, each with a store of its own; the first worker to hold
+        a claim is killed with ``kill -9``; after its lease the cell
+        requeues and the other worker finishes: one index record per
+        cell, each naming that worker,
+        the ledger's requeue of the killed worker's cell for its lapsed
+        lease, every record's run dir landed in the coordinator's store,
+        each verdict 19a's for the same key, the coordinator's exit code
+        1 exactly when a cell is invalid; each stored run's dict equal
+        to its CPU twin's in the workers; then a second coordinator on
+        the same store boots to the ledger's digest and `fleet status`
+        (in a child) prints the requeue and the windows, it is killed
+        with ``kill -9``, and a third, ``--until-done``, boots to the
+        digest before the kill and executes 0 cells;
+     b. once 21a's cells have ended, beside its restarts: an `Autopilot`
+        in process under the port's `web.serve`, 1-2 workers it spawns
+        (`fleet work --backend cuda`), 3 generations of the three append
+        cells at seeds 0-2 (no nemesis schedule), g0002 the ``append-b``
+        cells alone at tenfold client latency, the gate on the
+        ``workload`` span: g0002's gate reports a regression attributed
+        to an ``append-b`` key, the key is quarantined, its auto-shrink
+        runs on the card (device probes) and journals ``not-invalid``,
+        g0003's plan leaves it out, the journal replays to the same
+        digest, and `close` leaves no worker;
+     c. that coordinator's `/metrics` while its workers live parses as
+        text format 0.0.4 with ``jepsen_fleet_workers_alive``,
+        ``jepsen_fleet_cells{state="done"}``, ``jepsen_fleet_leases_active
+        0`` and federated ``jepsen_fleet_host_*`` series
+        (`chiprun_out/21c_metrics.txt`); `fleet status` prints its
+        workers, their versions and the autopilot; `cache warm` answers
+        the kernel library already built, `cache ls` and `cache stats`
+        list it.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
@@ -412,14 +450,15 @@ call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
 `core.run` of 17a-17c, 18a's `core.run` and 18b's seal, each child of
 phase 19 and its in-process analyses and re-checks, 20c's campaign and
-20d's re-check and Knossos CLI calls, and read just
-after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
+20d's re-check and Knossos CLI calls, each child of 21a and 21b's
+autopilot loop (its in-process shrink; the workers it spawns are not
+counted), and read just after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b, 14c, 15c, 16, 17 and 19 and, from the end of phase 6 on, make the seeded
+14b, 14c, 15c, 16, 17, 19 and 21a and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
 comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
 after phase 19, and the workers are stopped before the script exits.
@@ -449,6 +488,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -604,19 +644,21 @@ C1_MODELS = ["strict-serializable"]
 C1_CMP_TXNS = 1_000
 C1_CMP_CAP = 256
 CLOSURE_CHECK = 4_096        # 16a: the closure against the host's SCCs
-#: 16b: the sqlite suite, 10 workers and 10,000 ops a workload (20,000
-#: until the script took 1,254.2 s on a slower H100 host)
-DB_OPS = 10_000
+#: 16b: the sqlite suite, 10 workers and 7,500 ops a workload (20,000
+#: until the script took 1,254.2 s on a slower H100 host, 10,000 until
+#: phase 21 took it to 917.1-921.4 s on slower hosts)
+DB_OPS = 7_500
 DB_CONC = "10"
 #: 16c: the regd suite on three daemons: a 20 s run under the suite's
 #: stagger(0.003), the primary crashed and restarted between three
 #: phases of as many ops, and `test_regd_stale_reads_caught`'s stale
 #: reads run at 120 ops (at its 250 the host classification of the
-#: invalid check took 40 s).  20 s and 1,650 ops a phase since the
-#: script took 1,254.2 s on a slower H100 host (30 s and 3,300 before)
+#: invalid check took 40 s).  15 s and 1,100 ops a phase since phase 21
+#: took the script to 917.1-921.4 s on slower H100 hosts (20 s and 1,650
+#: since it took 1,254.2 s on one, 30 s and 3,300 before)
 REGD_NODES = ("n1", "n2", "n3")
-REGD_TIME_LIMIT = 20
-REGD_PHASE_OPS = 1_650
+REGD_TIME_LIMIT = 15
+REGD_PHASE_OPS = 1_100
 REGD_STALE_OPS = 120
 #: 17a: the toy raft (`dbs/toyraft.append_test`) from 10 workers under
 #: the partition, kill and membership packages, each fault cycle
@@ -686,8 +728,22 @@ OBS_BUDGET_S = 30.0
 OBS_CAMPAIGN = "obs-append"
 OBS_RULE = "card-peak-memory"
 #: what phase 20 reads of earlier phases: 14c's injected stored run and
-#: its result dict (``"14c"``), 18's store and 18a's run dir (``"18"``)
+#: its result dict (``"14c"``), 18's store and 18a's run dir (``"18"``);
+#: what phase 21 reads: 19a's verdicts by cell key (``"19a"``)
 SHARED: dict = {}
+
+#: phase 21 (the fleet): its wall-time budget, which it logs itself
+#: against; 21a's spec, `specs/production-traffic.json` cut to these
+#: cells (its queue and kafka cells drain for about 30 s against a node
+#: their membership window removed), and the coordinator's lease; 21b's
+#: autopilot: its generations over the three append cells, the label
+#: whose client latency g0002 raises tenfold and runs alone
+FLEET_BUDGET_S = 60.0
+FLEET_LABELS = ("append-a", "append-b", "append-c", "bank-a", "bank-b",
+                "wr-a", "wr-b")
+FLEET_LEASE_S = 3.0
+AP_GENERATIONS = 3
+AP_SLOW_LABEL = "append-b"
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -1325,6 +1381,7 @@ class Twins:
     def __init__(self, n: int):
         import multiprocessing as mp
         import tempfile
+        import threading
 
         os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_twins_",
@@ -1333,12 +1390,15 @@ class Twins:
         self.jobs = {}
         self.pending = []
         self.n = 0
+        # 21a's thread submits beside the main thread
+        self.lock = threading.Lock()
 
     def submit(self, key, fn, *args, **kw):
-        path = os.path.join(self.dir, f"{self.n}.pkl")
-        self.n += 1
-        self.jobs[key] = (path, self.pool.apply_async(
-            _run_to_file, (path, fn) + args, kw))
+        with self.lock:
+            path = os.path.join(self.dir, f"{self.n}.pkl")
+            self.n += 1
+            self.jobs[key] = (path, self.pool.apply_async(
+                _run_to_file, (path, fn) + args, kw))
 
     def get(self, key):
         """(result, the worker's seconds, the seconds waited and read
@@ -1598,7 +1658,7 @@ def main(argv=None) -> int:
 
 
 def phases(opts) -> list[str]:
-    """Phases 0-20 (see the module docstring); returns the lines to print
+    """Phases 0-21 (see the module docstring); returns the lines to print
     last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
@@ -1950,6 +2010,8 @@ def phases(opts) -> list[str]:
     t17 = check_faults(dev, launches, twins)
     log(f"[17] phase 17 took {t17:.1f} s")
     submit_triage_twins(early)
+    # phase 21a's fleet, in child processes beside phases 18-20
+    fleet = start_fleet(twins)
 
     # ---- 18. telemetry and live checking on the card ----------------------
     t18 = check_live(dev, launches, twins)
@@ -1962,6 +2024,10 @@ def phases(opts) -> list[str]:
     # ---- 20. the observatory on the stores of phases 14, 18 and 19 --------
     t20 = check_obs(launches)
     log(f"[20] phase 20 took {t20:.1f} s (budget {OBS_BUDGET_S:.0f} s)")
+
+    # ---- 21. the fleet on the card ------------------------------------------
+    t21 = check_fleet(launches, twins, fleet)
+    log(f"[21] phase 21 took {t21:.1f} s (budget {FLEET_BUDGET_S:.0f} s)")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -4110,11 +4176,12 @@ class Child:
                 [sys.executable, "-c", code, self.out, *argv], cwd=HERE,
                 stdout=log_f, stderr=subprocess.STDOUT)
 
-    def wait(self) -> tuple[int, dict, str, float]:
+    def wait(self, timeout=None) -> tuple[int, dict, str, float]:
         """(exit code, launches, its output, seconds from its start to
-        the end of its command)."""
+        the end of its command); past `timeout` seconds it is killed
+        and this raises."""
         try:
-            rc = self.proc.wait()
+            rc = self.proc.wait(timeout)
         finally:
             if self.proc.poll() is None:
                 self.proc.kill()
@@ -4126,6 +4193,12 @@ class Child:
         t = n["end"] - self.t0
         assert n["rc"] == rc, (self.name, n, rc, text[-2000:])
         return rc, {"locf": n["locf"], "seg_or": n["seg_or"]}, text, t
+
+    def kill9(self) -> None:
+        """SIGKILL the child, as ``kill -9`` does, and collect it: its
+        counts are lost with it."""
+        self.proc.kill()
+        self.proc.wait()
 
     def close(self) -> None:
         if self.proc.poll() is None:
@@ -4325,6 +4398,7 @@ def check_triage(dev: torch.device, launches: dict, twins: Twins,
         rc, n, out, t = collect(ka)
         recs = campaign_lines("19a", "production-traffic", stores["a"],
                               specs["production-traffic"], rc, n, t, out)
+        SHARED["19a"] = {r["key"]: r["valid?"] for r in recs.values()}
         chaos = recs["kafka-chaos"]
         assert chaos["valid?"] is False and chaos["witness"].get("ops"), \
             chaos
@@ -4584,14 +4658,15 @@ def twin_cells(tag: str, base: str, spec: str, recs: dict) -> None:
                     cell_equal(w, d, r_, r, t_))
 
 
-def cell_equal(what: str, d: str, r_cpu: dict, r: dict, t: float) -> None:
-    """19e: a stored run's dict on the card == its CPU twin's (the paths
-    of the SVGs an invalid check renders aside)."""
+def cell_equal(what: str, d: str, r_cpu: dict, r: dict, t: float,
+               tag: str = "19e") -> None:
+    """19e (and 21a): a stored run's dict on the card == its CPU twin's
+    (the paths of the SVGs an invalid check renders aside)."""
     def drop(x):
         return {k: v for k, v in x.items() if k != "viz-files"}
 
     assert drop(r_cpu) == drop(r), (what, d, r_cpu, r)
-    log(f"[19e] {what}: the stored run re-checked on the CPU in a worker "
+    log(f"[{tag}] {what}: the stored run re-checked on the CPU in a worker "
         f"({t:.2f} s): the card's dict")
 
 
@@ -5358,6 +5433,489 @@ def check_obs(launches: dict) -> float:
     log(f"[20] steps (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
                                        sorted(steps.items()))
         + f"; {t:.1f} s of the {OBS_BUDGET_S:.0f} s budget")
+    return t
+
+
+def fleet_spec(base: str) -> str:
+    """21a's spec file under `base`: `specs/production-traffic.json` as
+    shipped (its name, schedule, seeds and opts), cut to the cells of
+    `FLEET_LABELS`; the run ids are 19a's for the same cells."""
+    with open(os.path.join(HERE, "specs", "production-traffic.json")) as f:
+        spec = json.load(f)
+    spec["workloads"] = [w for w in spec["workloads"]
+                         if w.get("label") in FLEET_LABELS]
+    path = os.path.join(base, "production-traffic.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def http_text(url: str, timeout: float = 10.0) -> str:
+    """GET `url` (a server on 127.0.0.1): its body as text."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def http_json(url: str, timeout: float = 10.0):
+    """GET `url` (a server on 127.0.0.1) and parse its JSON body."""
+    return json.loads(http_text(url, timeout))
+
+
+def wait_up(url: str, proc, seconds: float = 90.0) -> dict:
+    """Poll ``/fleet/status`` at `url` until the coordinator answers (its
+    process `proc` still running); returns the status."""
+    t_end = time.monotonic() + seconds
+    while True:
+        assert proc.poll() is None, f"the coordinator exited {proc.poll()}"
+        try:
+            return http_json(url + "/fleet/status", timeout=2.0)
+        except OSError:
+            assert time.monotonic() < t_end, f"{url} did not come up"
+            time.sleep(0.1)
+
+
+def cli_text(argv: list) -> tuple[int, str]:
+    """`python -m jepsen_tpu_torch ARGV` in this process, its exit code
+    and its standard output."""
+    import contextlib
+    import io
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.__main__ import suite as demo_suite
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.run(demo_suite(), argv)
+    return rc, buf.getvalue()
+
+
+def start_fleet(twins: Twins) -> dict:
+    """Start 21a after phase 17, beside phases 18-20 (its cells' host
+    searches take a minute and more on one worker): the coordinator,
+    ``fleet serve SPEC --until-done``, then, from a thread (`run_fleet`),
+    the rest of 21a, which submits its stored runs' CPU twins to `twins`
+    as soon as they land.  Every request goes to 127.0.0.1 whatever proxy the
+    host names (the children inherit that); `check_fleet` restores the
+    environment.  Returns the phase's state; the children are registered
+    with `opened`."""
+    import shutil
+    import threading
+
+    from jepsen_tpu_torch.campaign import plan
+
+    base = os.path.join(HERE, "build", "chip_smoke_fleet")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    st = {"base": base, "t0": time.perf_counter(), "workers": {},
+          "twins": twins,
+          "proxy": {k: os.environ.get(k) for k in ("NO_PROXY",
+                                                   "no_proxy")}}
+    for k in st["proxy"]:
+        os.environ[k] = "127.0.0.1,localhost"
+    st["spec"] = spec_path = fleet_spec(base)
+    st["cells"] = plan.expand(plan.load_spec(spec_path))
+    st["coord"] = coord = os.path.join(base, "coord")
+    port = free_base(1)
+    st["url"] = f"http://127.0.0.1:{port}"
+    st["serve"] = serve = ["--store-dir", coord, "fleet", "serve",
+                           spec_path, "-p", str(port), "--lease",
+                           str(FLEET_LEASE_S)]
+    st["ka"] = opened(Child("21a-coordinator", base,
+                            serve + ["--until-done"]))
+    st["cells done"] = threading.Event()
+    st["thread"] = threading.Thread(target=run_fleet, args=(st,),
+                                    daemon=True, name="fleet-21a")
+    st["thread"].start()
+    return st
+
+
+def status_child(url: str) -> tuple[int, str]:
+    """``python -m jepsen_tpu_torch fleet status --coordinator URL`` in a
+    child process: its exit code and its output."""
+    res = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch", "fleet", "status",
+         "--coordinator", url], cwd=HERE, capture_output=True, text=True,
+        timeout=120)
+    return res.returncode, res.stdout + res.stderr
+
+
+def run_fleet(st: dict) -> None:
+    """21a, on a thread of its own (`start_fleet`); what it sees goes
+    into `st`, an exception as ``st["error"]``.  Once the coordinator
+    answers: two ``fleet work`` children; the first of them to hold a
+    claim is killed with ``kill -9``; the coordinator ends with the
+    campaign, the other worker with it (drained with SIGTERM if it missed
+    the end), and ``st["cells done"]`` is set; then a second coordinator
+    on the same store, `fleet status` in a child, ``kill -9``, and a
+    third, ``--until-done``."""
+    from jepsen_tpu_torch.fleet import WorkQueue, fleet_path
+
+    try:
+        base, url, ka, workers = st["base"], st["url"], st["ka"], \
+            st["workers"]
+        wait_up(url, ka.proc)
+        for i in range(2):
+            wname = f"fw{i}"
+            workers[wname] = opened(Child(f"21a-{wname}", base, [
+                "--store-dir", os.path.join(base, wname), "fleet", "work",
+                "--coordinator", url, "--backend", "cuda", "--upload",
+                "--name", wname, "--poll", "0.1"]))
+        t_end = time.monotonic() + 180.0
+        while "victim" not in st:
+            assert time.monotonic() < t_end, "no worker claimed a cell"
+            held = [x for x in http_json(url + "/fleet/status")["leases"]
+                    if x["worker"] in workers]
+            if held:
+                st["victim"] = held[0]
+            else:
+                time.sleep(0.05)
+        st["t_claim"] = time.perf_counter() - st["t0"]
+        st["killed"] = workers.pop(st["victim"]["worker"])
+        st["killed"].kill9()
+        st["t_kill"] = time.time()
+        st["a"] = ka.wait(timeout=400)
+        (wname, survivor), = workers.items()
+        try:
+            survivor.proc.wait(5)
+        except subprocess.TimeoutExpired:
+            # it polled between the last completion and the coordinator's
+            # exit, and is riding out the refused claims: drain it
+            survivor.proc.terminate()
+        st["w"] = (wname,) + survivor.wait(timeout=60)
+        st["t_a"] = time.perf_counter() - st["t0"]
+        # the stored runs' CPU twins, now, so that they run beside the
+        # phases before 21
+        from jepsen_tpu_torch import store
+        from jepsen_tpu_torch.campaign import core as ccore
+        from jepsen_tpu_torch.campaign.index import Index
+
+        st["twinned"] = {}
+        latest = Index(ccore.index_path(st["cells"][0].campaign,
+                                        st["coord"])).latest_by_run()
+        for rs in st["cells"]:
+            if rs.run_id in latest:
+                d = os.path.join(st["coord"], latest[rs.run_id]["dir"])
+                st["twinned"][rs.run_id] = store.load(d)["results"]
+                st["twins"].submit(("21", d), cell_cpu, d, rs.workload,
+                                   rs.opts, rs.seed)
+        st["digest_a"] = WorkQueue(fleet_path(
+            st["cells"][0].campaign, st["coord"])).digest()
+        st["cells done"].set()
+        t0 = time.perf_counter()
+        st["kb"] = kb = opened(Child("21a-coordinator-b", base,
+                                    st["serve"]))
+        st["sb"] = wait_up(url, kb.proc)
+        st["status_b"] = status_child(url)
+        st["pre"] = http_json(url + "/fleet/status")["digest"]
+        kb.kill9()
+        st["kc"] = kc = opened(Child("21a-coordinator-c", base,
+                                    st["serve"] + ["--until-done"]))
+        st["c"] = kc.wait(timeout=120)
+        st["t_restart"] = time.perf_counter() - t0
+    except BaseException as e:  # noqa: BLE001 — check_fleet raises it
+        st["error"] = e
+    finally:
+        st["cells done"].set()
+
+
+def check_fleet(launches: dict, twins: Twins, st: dict) -> float:
+    """Phase 21: the fleet on the card (see the module docstring).  21a
+    runs on its thread (`start_fleet`, its state `st`); once its cells
+    have ended, 21b's autopilot starts on a thread of its own (it shares
+    neither the card nor the cores with a 21a cell), beside 21a's
+    restarts; then 21a, 21b and 21c are checked here.  21a's children run
+    `counted_cli`, their counters set to 0 just before their command and
+    read just after (the worker killed with ``kill -9`` takes its counts
+    with it); 21b's counters are set to 0 just before the autopilot's
+    loop and read just after (its auto-shrink runs in this process; the
+    workers it spawns are its own ``python -m`` children, not counted).
+    The sums go into the main path's `launches`.  21a's stored runs are
+    checked again on the CPU in `twins`, compared in `twins.finish`.
+    Returns the seconds it took from its own start."""
+    import shutil
+    import threading
+
+    from jepsen_tpu_torch import store, web
+    from jepsen_tpu_torch.campaign import core as ccore
+    from jepsen_tpu_torch.campaign.index import Index
+    from jepsen_tpu_torch.fleet import (Autopilot, AutopilotJournal,
+                                        WorkQueue, fleet_path)
+    from jepsen_tpu_torch.ops import fill, scan
+
+    t21 = time.perf_counter()
+    steps = {}
+    base, coord, url, cells = st["base"], st["coord"], st["url"], \
+        st["cells"]
+    name = cells[0].campaign
+    n21 = {"locf": 0, "seg_or": 0}
+
+    def add(n):
+        for kname in n21:
+            n21[kname] += n[kname]
+
+    try:
+        # ---- 21a's cells (a thread since phase 17) ------------------------
+        t0 = time.perf_counter()
+        st["cells done"].wait(timeout=600)
+        assert st["cells done"].is_set(), "21a wedged"
+        if "error" in st:
+            raise st["error"]
+        steps["21a wait"] = time.perf_counter() - t0
+
+        # ---- 21b. the autopilot on the card, started once 21a's cells
+        # have ended, beside 21a's restarts (no cell runs there) --------
+        t0b = time.perf_counter()
+        ap_base = os.path.join(base, "ap")
+        with open(os.path.join(HERE, "specs", "production-traffic.json")) \
+                as f:
+            shipped = json.load(f)
+        template = {"name": "fleet-autopilot", "seeds": [0, 1, 2],
+                    "opts": shipped["opts"],
+                    "workloads": [w for w in shipped["workloads"]
+                                  if w["name"] == "append"]}
+        slow = 10 * shipped["opts"]["client-latency"]
+
+        def mutate(i, sp):
+            # g0002: the slowed label's cells alone, their client latency
+            # raised tenfold (with all nine cells and three slowed, the
+            # gate's one-sided Mann-Whitney test flags the shift about
+            # one time in four at its alpha of 0.05)
+            if i == 2:
+                sp["workloads"] = [
+                    dict(w, opts=dict(w.get("opts") or {},
+                                      **{"client-latency": slow}))
+                    for w in sp["workloads"] if w["label"] == AP_SLOW_LABEL]
+            return sp
+
+        ap_port = free_base(1)
+        ap_url = f"http://127.0.0.1:{ap_port}"
+        seen = {"workers": set()}
+
+        def on_generation(ap, out):
+            seen["workers"].update(w["proc"].pid
+                                   for w in ap.workers.values())
+            if len(ap.journal.closed_labels()) == AP_GENERATIONS:
+                # the workers still live: the federated series are there
+                seen["metrics"] = http_text(ap_url + "/metrics")
+
+        ap = opened(Autopilot(
+            template, os.path.join(base, "ap"), generations=AP_GENERATIONS,
+            min_workers=1, max_workers=2, coordinator_url=ap_url,
+            mutate=mutate, worker_extra=("--backend", "cuda"),
+            spans=("workload",), scale_interval_s=0.5,
+            shrink_knobs={"host-oracle": False},
+            on_generation=on_generation))
+        srv = web.serve(port=ap_port, base=ap_base, background=True,
+                        fleet=ap.coordinator)
+        # its `server_close` stops and joins the server's thread
+        served = opened(types.SimpleNamespace(close=srv.server_close))
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        result = {}
+        th = threading.Thread(target=lambda: result.update(ap.run()),
+                              daemon=True, name="fleet-autopilot")
+        th.start()
+
+        # ---- 21a: its restarts end beside 21b ----------------------------
+        st["thread"].join(timeout=600)
+        assert not st["thread"].is_alive(), "21a wedged"
+        if "error" in st:
+            raise st["error"]
+        victim = st["victim"]
+        log(f"[21a] fleet serve {os.path.basename(st['spec'])} (the "
+            f"shipped spec cut to {len(cells)} cells) --until-done --lease "
+            f"{FLEET_LEASE_S}, started after phase 17; two `fleet work "
+            f"--backend cuda --upload` children; {victim['worker']} held "
+            f"{victim['run']} {st['t_claim']:.2f} s after the coordinator "
+            f"started: kill -9")
+        rc_a, n, out_a, t_a = st["a"]
+        add(n)
+        wname, rc_w, n_w, out_w, _ = st["w"]
+        add(n_w)
+        assert rc_w == 0, out_w[-3000:]
+        with open(fleet_path(name, coord)) as f:
+            requeue = [ev for ev in map(json.loads, f)
+                       if ev["ev"] == "requeue"
+                       and ev["run"] == victim["run"]]
+        q = WorkQueue(fleet_path(name, coord))
+        counts = q.counts()
+        recs = Index(ccore.index_path(name, coord)).records
+        per_run = {}
+        for r in recs:
+            per_run[r["run"]] = per_run.get(r["run"], 0) + 1
+        assert per_run == {rs.run_id: 1 for rs in cells}, per_run
+        assert all(r["fleet-worker"] == wname for r in recs), recs
+        assert counts["requeues"] >= 1 and requeue, counts
+        assert requeue[0]["reason"] == "lease-expired", requeue
+        bad = 0
+        for rs in cells:
+            r = next(x for x in recs if x["run"] == rs.run_id)
+            d = os.path.join(coord, r["dir"])
+            assert os.path.isdir(d), r
+            want = SHARED["19a"][rs.key]
+            log(f"[21a] {rs.workload_label}: valid? {r['valid?']} (19a: "
+                f"{want}), {r['ops']} ops, {r['wall_s']} s, by "
+                f"{r['fleet-worker']}, its run dir uploaded to the "
+                f"coordinator's store (spans: upload "
+                f"{r['spans'].get('fleet:upload')} s, enqueue-wait "
+                f"{r['spans'].get('fleet:enqueue-wait')} s)")
+            assert r["valid?"] == want, (rs.key, r["valid?"], want)
+            bad += r["valid?"] is False
+            res = st["twinned"][rs.run_id]
+            assert res == store.load(d)["results"], d
+            twins.later(("21", d), lambda r_, t_, r=res, d=d,
+                        w=rs.workload_label:
+                        cell_equal(w, d, r_, r, t_, tag="21a"))
+        assert rc_a == (1 if bad else 0), (rc_a, out_a[-3000:])
+        log(f"[21a] the coordinator exited {rc_a} ({bad} invalid) "
+            f"{t_a:.2f} s after its start, {st['t_a']:.2f} s after 21a's; "
+            f"{wname} exited {rc_w}, launches {n_w}; one record per cell, "
+            f"each by {wname}; the killed worker's lease lapsed and its "
+            f"cell requeued {requeue[0]['ts'] - st['t_kill']:.2f} s after "
+            f"the kill; ledger {counts}, digest {q.digest()}")
+        sb, pre = st["sb"], st["pre"]
+        assert sb["boot-digest"] == st["digest_a"] == q.digest() and \
+            sb["finished"], sb
+        rc, text_b = st["status_b"]
+        assert rc == 0 and f"{len(cells)}/{len(cells)} cells done " \
+            f"(finished)" in text_b and "nemesis schedule:" in text_b, \
+            text_b
+        assert f"{counts['requeues']} requeues, {counts['duplicates']} " \
+            f"duplicates discarded" in text_b, text_b
+        rc_c, n, out_c, t_c = st["c"]
+        add(n)
+        assert rc_c == rc_a and f"boot digest {pre}" in out_c and \
+            f"{len(cells)} already indexed" in out_c, out_c[-3000:]
+        assert len(Index(ccore.index_path(name, coord)).records) == \
+            len(recs)
+        steps["21a"] = st["t_a"]
+        steps["21a restart"] = st["t_restart"]
+        log(f"[21a] a second coordinator on the same store: boot digest "
+            f"{sb['boot-digest']} = the ledger's; `fleet status` in a "
+            f"child:\n" + text_b.rstrip() + f"\n[21a] kill -9, then `fleet "
+            f"serve --until-done` again: boot digest {pre} = the digest "
+            f"before the kill, {len(cells)} already indexed, 0 cells "
+            f"executed, exit {rc_c} in {t_c:.2f} s; the restarts took "
+            f"{st['t_restart']:.2f} s")
+
+        # ---- 21b's checks -------------------------------------------------
+        th.join(timeout=300)
+        if th.is_alive():
+            ap.stop.set()
+            th.join(timeout=60)
+            raise AssertionError("the autopilot did not close "
+                                 f"{AP_GENERATIONS} generations")
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        add(n)
+        j = ap.journal
+        gens = {label: j.gens[label] for label in j.order}
+        for label, g in gens.items():
+            for v in g["verdicts"] or []:
+                log(f"[21b] {label} ({g['runs']} cells): gate {v['span']}: "
+                    f"{v['status']} (rc {v['rc']}), rel-delta "
+                    f"{v.get('rel-delta')}, p {v.get('p-value')}"
+                    + (f", attributed to {v['key']} "
+                       f"({v['key-rel-delta']:+.2f})" if v.get("key")
+                       else ""))
+        hits = [v for v in gens["g0002"]["verdicts"]
+                if v["span"] == "workload" and v["status"] == "regression"]
+        assert hits and str(hits[0].get("key")).startswith(
+            AP_SLOW_LABEL + "|"), gens["g0002"]
+        key = hits[0]["key"]
+        assert j.quarantined[key]["gen"] == "g0002", j.quarantined
+        shrunk = j.shrinks[key]
+        assert shrunk["outcome"].get("error") == "not-invalid", shrunk
+        assert n["locf"] > 0, n
+        plan3 = [rs.key for rs in ap._plan(3)]
+        # a gate of g0001 may flag noise too: a key it quarantined is out
+        # of g0003's plan as well, and logged
+        assert key not in plan3 and len(plan3) == 9 - len(j.quarantined) \
+            and not set(j.quarantined) & set(plan3), (plan3, j.quarantined)
+        others = sorted(set(j.quarantined) - {key})
+        replayed = AutopilotJournal(j.path).digest()
+        assert replayed == j.digest() == result["digest"], (replayed, j)
+        spawned = sorted(seen["workers"])
+        assert spawned, seen
+        seen["status"] = cli_text(["fleet", "status", "--coordinator",
+                                   ap_url])
+        closed(served)
+        closed(ap)
+        left = [p for p in marked_pids(os.environ[TAG_VAR])
+                if p in spawned]
+        assert not ap.workers and not left, (ap.workers, left)
+        steps["21b"] = time.perf_counter() - t0b
+        with open(j.path) as f:
+            scale = [json.loads(ln)["action"] for ln in f
+                     if '"ev": "scale"' in ln]
+        log(f"[21b] autopilot over {len(template['workloads'])} append "
+            f"cells x seeds 0-2, 1-2 workers ({len(spawned)} spawned; "
+            f"scale events {scale}): {len(j.closed_labels())} generations "
+            f"closed in {steps['21b']:.2f} s; {key} quarantined at g0002 "
+            f"(others: {others or 'none'}), its auto-shrink on the card: "
+            f"{shrunk['outcome']['error']} (launches in process {n}); "
+            f"g0003 plans {len(plan3)} cells without it; journal digest "
+            f"{j.digest()} = its replay's; close(): no worker left")
+
+        # ---- 21c. the surfaces -------------------------------------------
+        t0 = time.perf_counter()
+        text = seen["metrics"]
+        with open(os.path.join(OUT_DIR, "21c_metrics.txt"), "w") as f:
+            f.write(text)
+        samples = parse_exposition(text)
+        host = sorted(x for x in samples
+                      if x.startswith("jepsen_fleet_host_"))
+        done = 'jepsen_fleet_cells{state="done"}'
+        assert samples.get("jepsen_fleet_workers_alive", 0) >= 1, samples
+        assert samples.get(done) == \
+            sum(g["runs"] for g in gens.values()), samples
+        assert samples.get("jepsen_fleet_leases_active") == 0.0
+        assert host, sorted(samples)[:40]
+        rc, st_text = seen["status"]
+        assert rc == 0 and "version=dev" in st_text and \
+            "autopilot: generation g0002" in st_text, st_text
+        rc, warm = cli_text(["cache", "warm"])
+        assert rc == 0 and "already built" in warm, warm
+        so = warm.split()[2]
+        rc, ls = cli_text(["cache", "ls"])
+        assert rc == 0 and so in ls, ls
+        rc, stats = cli_text(["cache", "stats"])
+        assert rc == 0 and so in json.loads(stats)["libraries"], stats
+        steps["21c"] = time.perf_counter() - t0
+        log(f"[21c] the autopilot coordinator's /metrics "
+            f"({len(text.splitlines())} lines, chiprun_out/21c_metrics.txt) "
+            f"parses as text format 0.0.4: workers alive "
+            f"{samples['jepsen_fleet_workers_alive']:.0f}, cells done "
+            f"{samples[done]:.0f}, leases active 0, {len(host)} federated "
+            f"jepsen_fleet_host_* samples; `fleet status`:\n"
+            + st_text.rstrip() + "\n[21c] " + warm.strip() + "; cache ls: "
+            + ls.strip().splitlines()[-1] + "; cache stats: "
+            + json.dumps(json.loads(stats)))
+
+    finally:
+        for k in ("ka", "killed", "kb", "kc"):
+            if k in st:
+                closed(st[k])
+        for c in list(st["workers"].values()):
+            closed(c)
+        for k, v in st["proxy"].items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[21] launches in phase 21: {n21}")
+    assert n21["locf"] > 0, n21
+    for kname in launches:
+        launches[kname] += n21[kname]
+    # the stores go once every twin has read them (`Twins.finish`)
+    twins.submit("21-end", os.getpid)
+    twins.later("21-end", lambda *_: shutil.rmtree(base, ignore_errors=True))
+    t = time.perf_counter() - t21
+    log(f"[21] steps (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       sorted(steps.items()))
+        + f" (21a from its start after phase 17); {t:.1f} s from the "
+        f"phase's own start, of the {FLEET_BUDGET_S:.0f} s budget")
     return t
 
 

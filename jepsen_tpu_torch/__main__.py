@@ -3,7 +3,7 @@
 
 Ships a self-contained demo suite over the in-process sim cluster (so the
 zero-to-aha path needs no real nodes), plus `analyze` (SURVEY.md §2.1 L7),
-`shrink` and `campaign`.
+`shrink`, `campaign`, `obs`, `fleet` and `cache`.
 A real db suite builds its own CLI with
 `jepsen_tpu_torch.cli.single_test_cmd`.
 

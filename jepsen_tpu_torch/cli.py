@@ -26,10 +26,14 @@ witness), ``campaign run|status|report SPEC`` (`campaign`: a matrix of
 workload x fault x seed with a resumable verdict index) and ``obs
 ingest|rebuild|gate|sql|bench|timeline|profile|diff|gc|alerts|compact``
 (the sqlite telemetry warehouse over the store, its queries and the
-alert engine).  ``--telemetry`` collects spans and metrics into the
-run's store dir; ``--profile-dir DIR`` also writes a ``torch.profiler``
-trace there.  The JAX module's ``serve``, ``fleet`` and ``cache`` wait
-for the modules they drive.  ``--cpu`` puts ``"cpu"`` in the options as
+alert engine), ``fleet serve|work|status|autopilot`` (a campaign served
+as a leased work queue over HTTP to workers on this or other hosts, and
+the autopilot that streams generations into it) and ``cache
+warm|ls|stats|clear`` (the kernel build in ``build/jepsen_tpu_torch/``;
+``warm`` raises `KernelError` where the build fails).  ``--telemetry``
+collects spans and metrics into the run's store dir; ``--profile-dir
+DIR`` also writes a ``torch.profiler`` trace there.  The JAX module's
+``serve`` waits for the port's web pages.  ``--cpu`` puts ``"cpu"`` in the options as
 the checkers' device (``opts["cpu"]``); without it the checkers run on
 the CUDA card
 and, with no card, a test records ``valid? unknown`` naming
@@ -228,6 +232,322 @@ def campaign_cmd(opts: argparse.Namespace) -> int:
         return 0
     print(f"campaign: unknown action {opts.action!r}", file=sys.stderr)
     return 2
+
+
+def fleet_cmd(opts: argparse.Namespace) -> int:
+    """`fleet serve|work|status|autopilot` — the distributed campaign
+    control plane (docs/FLEET.md): a coordinator serves a spec as a
+    leased work queue over HTTP; remote workers claim, execute, and
+    upload verdicts; every cell lands exactly one attributable record.
+    `autopilot` (docs/AUTOPILOT.md) is the continuous driver on top:
+    stream template generations forever, gate each one, quarantine +
+    auto-shrink regressions, scale the worker pool.  ``--cpu`` (before
+    the subcommand, or after ``fleet``) runs a worker's cells, or the
+    autopilot's managed workers' cells, on the CPU; ``--cache-warm``
+    builds the kernels first and fails the command where they cannot
+    be built."""
+    import json
+    import signal
+    import time as _time
+    import urllib.request
+
+    from . import report, web
+    from .fleet import Autopilot, FleetCoordinator, FleetWorker
+
+    base = opts.store_dir
+    if getattr(opts, "cache_warm", False) and opts.action in (
+            "serve", "work", "autopilot"):
+        # before the service loop starts: a build that fails here would
+        # fail every device cell anyway
+        _cache_warm()
+    if opts.action == "autopilot":
+        if not opts.spec:
+            print("fleet autopilot needs a campaign spec template",
+                  file=sys.stderr)
+            return 2
+        url = f"http://{opts.host}:{opts.port}"
+        mutate = None
+        if getattr(opts, "rotate", 0):
+            from .fleet import scenario_rotation
+            mutate = scenario_rotation(
+                pivot=tuple(getattr(opts, "pivot", None) or ()),
+                slots=opts.rotate)
+        try:
+            ap = Autopilot(
+                opts.spec, base, lease_s=opts.lease,
+                run_deadline_s=opts.run_deadline,
+                generations=getattr(opts, "generations", None),
+                spans=tuple(getattr(opts, "gate_span", None)
+                            or ("workload", "check:*")),
+                parole_after=getattr(opts, "parole_after", None),
+                mutate=mutate,
+                coordinator_url=url,
+                min_workers=getattr(opts, "workers_min", 0),
+                max_workers=getattr(opts, "workers_max", 0),
+                worker_version=getattr(opts, "worker_version", None)
+                or "dev",
+                worker_extra=("--cpu",) if getattr(opts, "cpu", False)
+                else ())
+        except (OSError, ValueError) as e:
+            print(f"fleet: bad spec {opts.spec!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: ap.stop.set())
+        except ValueError:
+            pass  # not the main thread (embedded use)
+        srv = web.serve(port=opts.port, base=base, host=opts.host,
+                        fleet=ap.coordinator, background=True)
+        print(f"autopilot {ap.name}: serving {url}, journal digest "
+              f"{ap.journal.digest()}, {len(ap.journal.order)} "
+              f"generation(s) journaled, "
+              f"{len(ap.journal.quarantined)} quarantined", flush=True)
+        try:
+            out = ap.run()
+        except KeyboardInterrupt:
+            ap.close()
+            return 1
+        finally:
+            srv.server_close()
+            ap.coordinator.close()
+        print(f"autopilot {ap.name}: {out['generations']} "
+              f"generation(s) closed, quarantined="
+              f"{out['quarantined'] or '[]'}, digest {out['digest']}")
+        return 0
+    if opts.action == "serve":
+        if not opts.spec:
+            print("fleet serve needs a campaign spec", file=sys.stderr)
+            return 2
+        try:
+            retention = getattr(opts, "staging_retention", None)
+            coord = FleetCoordinator(
+                opts.spec, base, lease_s=opts.lease,
+                run_deadline_s=opts.run_deadline,
+                staging_retention_s=(retention if retention is not None
+                                     else 24 * 3600.0))
+        except (OSError, ValueError) as e:
+            print(f"fleet: bad spec {opts.spec!r}: {e}", file=sys.stderr)
+            return 2
+        verifier = None
+        if getattr(opts, "ingest", False):
+            # the co-hosted verifier's per-host verdict freshness
+            # joins /fleet/status; its ingest routes wait for the
+            # port's web pages (ROADMAP A4)
+            from .verifier import VerifierService
+
+            verifier = VerifierService(base)
+            verifier.start_maintenance()
+        print(f"fleet {coord.name}: {len(coord.specs)} cells, "
+              f"{len(coord._done_ids)} already indexed, lease "
+              f"{coord.lease_s}s, boot digest {coord.boot_digest}",
+              flush=True)
+        if not getattr(opts, "until_done", False):
+            try:
+                web.serve(port=opts.port, base=base, host=opts.host,
+                          fleet=coord, verifier=verifier)
+            finally:
+                coord.close()
+                if verifier is not None:
+                    verifier.close()
+            return 0
+        srv = web.serve(port=opts.port, base=base, host=opts.host,
+                        fleet=coord, verifier=verifier,
+                        background=True)
+        try:
+            while not coord.finished:
+                _time.sleep(0.2)
+        except KeyboardInterrupt:
+            return 1
+        finally:
+            coord.close()
+            if verifier is not None:
+                verifier.close()
+            srv.server_close()
+        summary = coord.summary()
+        print(report.render_campaign(summary))
+        bad = summary["counts"]["false"]
+        if bad:
+            print(f"{bad} invalid run(s)", file=sys.stderr)
+        return 1 if bad else 0
+    if opts.action == "work":
+        if not opts.coordinator:
+            print("fleet work needs --coordinator URL", file=sys.stderr)
+            return 2
+        worker = FleetWorker(opts.coordinator, base, name=opts.name,
+                             device_slots=opts.device_slots,
+                             backend=opts.backend, mesh=opts.mesh,
+                             poll_s=opts.poll,
+                             claim_budget_s=opts.claim_budget,
+                             upload=getattr(opts, "upload", False),
+                             version=getattr(opts, "worker_version",
+                                             None),
+                             cpu=bool(getattr(opts, "cpu", False)))
+        # SIGTERM drains gracefully: finish the in-flight cell, release
+        # unstarted claims, exit — the lease protocol covers kill -9
+        try:
+            signal.signal(signal.SIGTERM,
+                          lambda *_: worker.stop.set())
+        except ValueError:
+            pass  # not the main thread (embedded use)
+        try:
+            n = worker.run()
+        except KeyboardInterrupt:
+            return 1
+        print(f"worker {worker.name}: {n} cells completed")
+        return 0
+    if opts.action == "status":
+        if not opts.coordinator:
+            print("fleet status needs --coordinator URL",
+                  file=sys.stderr)
+            return 2
+        url = opts.coordinator.rstrip("/") + "/fleet/status"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                s = json.loads(r.read().decode())
+        except Exception as e:  # noqa: BLE001 — network errors surfaced
+            print(f"fleet: status fetch failed: {e}", file=sys.stderr)
+            return 2
+        c = s.get("counts") or {}
+        print(f"fleet {s.get('campaign')}: {s.get('done')}/"
+              f"{s.get('total')} cells done "
+              f"({'finished' if s.get('finished') else 'running'}) — "
+              f"{c.get('queued')} queued, {c.get('claimed')} claimed, "
+              f"{c.get('requeues')} requeues, {c.get('duplicates')} "
+              f"duplicates discarded")
+        # the scaler's two inputs
+        p95 = s.get("claim-latency-p95-s")
+        print(f"queue depth: {s.get('queue-depth')}  "
+              f"claim-latency p95: "
+              f"{'-' if p95 is None else f'{p95:.3f}s'}")
+        print(f"digest: {s.get('digest')}  boot: {s.get('boot-digest')}")
+        for w, d in sorted((s.get("workers") or {}).items()):
+            line = (f"  worker {w}: host={d.get('host')} "
+                    f"slots={d.get('device-slots')} "
+                    f"version={d.get('version') or '-'} "
+                    f"seen {d.get('age-s')}s ago "
+                    f"({'alive' if d.get('alive') else 'silent'})")
+            wd = d.get("windows")
+            if wd:
+                open_ = ",".join(str(o.get("pos"))
+                                 for o in wd.get("open") or ()) or "-"
+                line += (f" windows[gen {wd.get('gen')}] "
+                         f"{wd.get('digest')} open={open_}"
+                         f"{'' if wd.get('synced') else ' DESYNCED'}")
+                if wd.get("t0-skew") is not None:
+                    line += (f" t0-skew={wd['t0-skew']}s"
+                             f"{'' if wd.get('clock-synced') else ' CLOCK-DESYNCED'}")
+            print(line)
+        sched = s.get("nemesis-schedule")
+        if sched:
+            print(f"nemesis schedule: {sched.get('windows')} "
+                  f"window(s)/gen over {'|'.join(sched.get('faults'))}")
+            gens = sched.get("gens") or {}
+            digests = sched.get("digest-by-gen") or {}
+            t0s = sched.get("t0-by-gen") or {}
+            for g in sorted(gens, key=lambda x: int(x)):
+                wins = " ".join(
+                    f"[{w.get('pos')}:{w.get('fault')}@"
+                    f"{w.get('at_s')}s+{w.get('dur_s')}s]"
+                    for w in gens[g])
+                anchor = (f" t0={t0s[g]}" if g in t0s else "")
+                print(f"  gen {g}: {digests.get(g)}{anchor} {wins}")
+        ap = s.get("autopilot")
+        if ap:
+            print(f"autopilot: generation {ap.get('generation')} "
+                  f"({ap.get('generations-closed')} closed), "
+                  f"{len(ap.get('quarantined') or {})} quarantined, "
+                  f"worker version {ap.get('worker-version')}, "
+                  f"journal {ap.get('journal-digest')}")
+            for k, q in sorted((ap.get("quarantined") or {}).items()):
+                print(f"  quarantined {k}: {q.get('span')} "
+                      f"{q.get('rel-delta')} at {q.get('gen')}")
+            for v in ap.get("last-verdicts") or []:
+                print(f"  gate[{v.get('to-gen')}] "
+                      f"{v.get('span')}: {v.get('status')} "
+                      f"(rc {v.get('rc')})")
+        return 0
+    print(f"fleet: unknown action {opts.action!r}", file=sys.stderr)
+    return 2
+
+
+def cache_cmd(opts: argparse.Namespace) -> int:
+    """`cache warm|ls|stats|clear` — the port's one ahead-of-time
+    artefact, the kernel build in ``build/jepsen_tpu_torch/`` (the JAX
+    module's command manages its shape-bucketed AOT compile cache; the
+    port compiles nothing per shape).  ``warm`` builds the kernels
+    unless the library for the current sources is there, and raises
+    `KernelError` where the build fails; ``ls`` and ``stats`` list and
+    count the build's files; ``clear`` removes them."""
+    from .ops import kernels
+
+    d = str(kernels.BUILD_DIR)
+    if opts.action == "warm":
+        so, built = _cache_warm(verbose=not opts.json)
+        if opts.json:
+            print(json.dumps({"dir": d, "library": os.path.basename(so),
+                              "built": built}, indent=1))
+        return 0
+    files = _build_files(d)
+    if opts.action == "ls":
+        for name, size in files:
+            print(f"{name}  {size:>9}")
+        print(f"{len(files)} files, {sum(s for _, s in files)} bytes "
+              f"({d})")
+        return 0
+    if opts.action == "stats":
+        libs = [n for n, _ in files if n.endswith(".so")]
+        print(json.dumps({"dir": d, "files": len(files),
+                          "bytes": sum(s for _, s in files),
+                          "libraries": libs}, indent=1))
+        return 0
+    if opts.action == "clear":
+        n = 0
+        for name, _ in files:
+            try:
+                os.remove(os.path.join(d, name))
+                n += 1
+            except OSError:
+                pass
+        print(f"cache clear: {n} files removed ({d})")
+        return 0
+    print(f"cache: unknown action {opts.action!r}", file=sys.stderr)
+    return 2
+
+
+def _build_files(d: str) -> List[tuple]:
+    """(name, bytes) of every file of the kernel build at `d`."""
+    try:
+        names = sorted(os.listdir(d))
+    except OSError:
+        return []
+    out = []
+    for name in names:
+        p = os.path.join(d, name)
+        if os.path.isfile(p):
+            out.append((name, os.path.getsize(p)))
+    return out
+
+
+def _cache_warm(verbose: bool = True) -> tuple:
+    """Build the kernels unless the library for the current sources is
+    built (`ops.kernels.build`); returns (its path, whether this call
+    built it).  A failed build raises `KernelError`: unlike the JAX
+    module's warm-up, which continues cold, every device cell would
+    raise it anyway."""
+    import time as _time
+
+    from .ops import kernels
+
+    t0 = _time.perf_counter()
+    before = {n for n, _ in _build_files(str(kernels.BUILD_DIR))}
+    so = kernels.build()
+    built = os.path.basename(so) not in before
+    if verbose:
+        what = (f"built in {_time.perf_counter() - t0:.2f} s" if built
+                else "already built")
+        print(f"cache warm: {os.path.basename(so)} ({what}; "
+              f"{kernels.BUILD_DIR})", flush=True)
+    return str(so), built
 
 
 def shrink_cmd(opts: argparse.Namespace,
@@ -788,7 +1108,8 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                     checker_fn: Optional[Callable] = None,
                     prog: str = "jepsen-tpu-torch"):
     """Build the standard CLI: `test`, `analyze`, `trace`, `tail`,
-    `shrink`, `campaign` and `obs` subcommands.  Returns (parser, dispatch)."""
+    `shrink`, `campaign`, `obs`, `fleet` and `cache` subcommands.
+    Returns (parser, dispatch)."""
     p = base_parser(prog)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -936,6 +1257,132 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                          "executor; cooperative checker deadline "
                          "otherwise)")
 
+    pfl = sub.add_parser("fleet",
+                         help="distributed campaign execution: a "
+                              "leased work queue served over HTTP + "
+                              "remote workers (docs/FLEET.md)")
+    pfl.add_argument("action", choices=("serve", "work", "status",
+                                        "autopilot"))
+    pfl.add_argument("spec", nargs="?",
+                     help="campaign spec JSON file (serve), or spec "
+                          "TEMPLATE (autopilot: expanded into "
+                          "generations forever)")
+    pfl.add_argument("-p", "--port", type=int, default=8080)
+    pfl.add_argument("--host", default="127.0.0.1",
+                     help='bind address (use "0.0.0.0" so remote '
+                          "workers can reach the control plane)")
+    pfl.add_argument("--coordinator", default=None, metavar="URL",
+                     help="coordinator base URL (work/status), e.g. "
+                          "http://host:8080")
+    pfl.add_argument("--lease", type=float, default=15.0,
+                     help="claim lease seconds; a worker that stops "
+                          "renewing for this long loses the cell, "
+                          "which requeues (serve)")
+    pfl.add_argument("--run-deadline", type=float, default=None,
+                     help="per-cell checker budget in seconds, merged "
+                          "into cells without their own (serve)")
+    pfl.add_argument("--until-done", action="store_true",
+                     help="serve: exit with the campaign summary once "
+                          "every cell has a verdict (default: keep "
+                          "serving)")
+    pfl.add_argument("--name", default=None,
+                     help="worker name (default: host-pid)")
+    pfl.add_argument("--device-slots", type=int, default=1,
+                     help="device pipelines this worker can run; 0 "
+                          "claims host-only cells")
+    pfl.add_argument("--poll", type=float, default=0.5,
+                     help="idle claim poll interval seconds (work)")
+    pfl.add_argument("--backend", default=None,
+                     help="advertised device backend capability "
+                          "(work): device cells whose opts pin a "
+                          '"backend" land only on matching workers')
+    pfl.add_argument("--mesh", default=None,
+                     help='advertised mesh shape, e.g. "2x2" (work)')
+    pfl.add_argument("--claim-budget", type=float, default=120.0,
+                     help="seconds of seeded-jittered backoff a worker "
+                          "spends riding out claim outages before "
+                          "giving up (work)")
+    pfl.add_argument("--upload", action="store_true",
+                     help="work: upload each cell's run dir to the "
+                          "coordinator's artifact endpoint — no "
+                          "shared store filesystem needed "
+                          "(docs/FLEET.md federation)")
+    pfl.add_argument("--ingest", action="store_true",
+                     help="serve: also run the verifier service on "
+                          "the same port, so cells with "
+                          '"live-check" opts stream here '
+                          "(docs/VERIFIER.md)")
+    pfl.add_argument("--generations", type=int, default=None,
+                     help="autopilot: stop after this many gated "
+                          "generations (default: stream forever)")
+    pfl.add_argument("--gate-span", dest="gate_span", action="append",
+                     help="autopilot: span site(s) gated per "
+                          "generation (repeatable, * globs; default "
+                          "workload + check:*)")
+    pfl.add_argument("--workers-min", dest="workers_min", type=int,
+                     default=0,
+                     help="autopilot: scaler lower bound on managed "
+                          "local workers (0 = bring your own workers)")
+    pfl.add_argument("--workers-max", dest="workers_max", type=int,
+                     default=0,
+                     help="autopilot: scaler upper bound; 0 disables "
+                          "the scaler entirely")
+    pfl.add_argument("--worker-version", dest="worker_version",
+                     default=None,
+                     help="work: advertised build version (default "
+                          "$JEPSEN_WORKER_VERSION or 'dev'); "
+                          "autopilot: target version — changing it on "
+                          "a live loop rolls the pool one worker at "
+                          "a time")
+    pfl.add_argument("--parole-after", dest="parole_after",
+                     type=int, default=None, metavar="N",
+                     help="autopilot: re-admit a quarantined cell "
+                          "after N closed generations with no "
+                          "regression since its quarantine — a "
+                          "re-offender is re-quarantined "
+                          "(docs/AUTOPILOT.md; default: quarantine "
+                          "is forever)")
+    pfl.add_argument("--rotate", dest="rotate", type=int, default=0,
+                     metavar="N",
+                     help="autopilot: rotate scenarios, not just "
+                          "seeds — each generation keeps the pivot "
+                          "cells and fills N slots by walking the "
+                          "template's remaining cells in order "
+                          "(docs/AUTOPILOT.md; 0 = run the full "
+                          "template every generation)")
+    pfl.add_argument("--pivot", dest="pivot", action="append",
+                     metavar="LABEL",
+                     help="autopilot --rotate: cell label/workload "
+                          "kept in EVERY generation so its span "
+                          "stays gate-comparable (repeatable; "
+                          "default: the template's first cell)")
+    pfl.add_argument("--staging-retention", dest="staging_retention",
+                     type=float, default=None,
+                     help="serve: expire abandoned artifact-upload "
+                          "partials under <store>/fleet/staging/ "
+                          "after this many seconds (default 86400); "
+                          "staged bytes are visible either way as "
+                          "jepsen_fleet_artifact_staging_bytes on "
+                          "/metrics")
+    pfl.add_argument("--cache-warm", dest="cache_warm",
+                     action="store_true",
+                     help="build the CUDA kernels at service start "
+                          "(serve/work/autopilot) unless they are "
+                          "built; a failed build fails the command")
+    pfl.add_argument("--cpu", action="store_true",
+                     default=argparse.SUPPRESS,
+                     help="work/autopilot: run the cells' checkers on "
+                          "the CPU instead of the CUDA card (as the "
+                          "top-level --cpu)")
+
+    pcc = sub.add_parser("cache",
+                         help="the kernel build in "
+                              "build/jepsen_tpu_torch/: build it, "
+                              "list or count its files, or remove them")
+    pcc.add_argument("action", choices=("warm", "ls", "stats", "clear"))
+    pcc.add_argument("--json", action="store_true",
+                     help="machine-readable output (warm)")
+
     def dispatch(opts: argparse.Namespace) -> int:
         if opts.cmd == "test":
             return run_test_cmd(test_fn, opts)
@@ -951,6 +1398,10 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
             return tail_cmd(opts)
         if opts.cmd == "obs":
             return obs_cmd(opts)
+        if opts.cmd == "fleet":
+            return fleet_cmd(opts)
+        if opts.cmd == "cache":
+            return cache_cmd(opts)
         p.error(f"unknown command {opts.cmd}")
         return 2
 

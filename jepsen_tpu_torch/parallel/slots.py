@@ -5,9 +5,15 @@ The campaign scheduler pins each device run to the slot it acquired
 (`set_active_slot` around the run on a worker thread); the subprocess
 runner exports the ``JEPSEN_CAMPAIGN_DEVICE_SLOT`` /
 ``..._SLOTS`` environment pair instead.  `active_slot` reads either.
-The JAX module's mesh half (`slot_devices`, `default_mesh`,
-`place_sharded`, `set_forced_shards`) waits for the port's multi-card
-paths.
+A fleet worker pins a cell's shard count with `set_forced_shards`
+(thread-local; ``JEPSEN_SHARDS`` when unpinned, read by
+`_forced_shards` as in the JAX module).
+
+Nothing in the port reads that pin yet: the JAX module's mesh half
+(`slot_devices`, `default_mesh`, `place_sharded`) waits for the port's
+multi-card paths.  This is what the JAX package does on a one-device
+host too: there `default_mesh` takes ``devs[:forced]``, finds fewer
+than 2 devices and returns None, the single-device path.
 
 Keeping this module import-light matters: it is consulted from the
 campaign scheduler threads.
@@ -19,7 +25,7 @@ import os
 import threading
 from typing import Optional, Tuple
 
-__all__ = ["set_active_slot", "active_slot"]
+__all__ = ["set_active_slot", "set_forced_shards", "active_slot"]
 
 _local = threading.local()
 
@@ -30,6 +36,26 @@ def set_active_slot(slot: Optional[int], n_slots: int = 1) -> None:
     each device run; the subprocess runner exports the env pair
     instead."""
     _local.slot = None if slot is None else (int(slot), max(1, int(n_slots)))
+
+
+def set_forced_shards(n: Optional[int]) -> None:
+    """Pin this THREAD's shard count (None clears) — the thread-safe
+    form of JEPSEN_SHARDS, used by fleet workers running cells with a
+    pinned ``opts["mesh"]`` (several workers may share one process)."""
+    _local.shards = None if n is None else int(n)
+
+
+def _forced_shards() -> Optional[int]:
+    n = getattr(_local, "shards", None)
+    if n is not None:
+        return n
+    env = os.environ.get("JEPSEN_SHARDS")
+    if env is None:
+        return None
+    try:
+        return int(env)
+    except ValueError:
+        return None
 
 
 def active_slot() -> Optional[Tuple[int, int]]:

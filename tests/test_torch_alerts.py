@@ -13,8 +13,9 @@ given by duck typing, the warehouse rollups, the card's memory
 watermarks as ``gauge:`` signals) and `obs alerts`.  Seeded random signal
 sequences under a fake clock give equal journals and digests.  The
 `WebhookSink` posts to an `http.server` on 127.0.0.1, in a daemon thread
-the test joins.  The twin-pass parole tests of the spec need the fleet's
-autopilot, which is not ported yet.
+the test joins.  The twin-pass parole tests of the spec, and
+`_autopilot_signals` on a real `AutopilotJournal`, are in
+`test_torch_autopilot.py`.
 """
 
 import json

@@ -8,8 +8,13 @@ decision are equal to the JAX package's, the keys of ``--telemetry`` and
 ``--profile-dir`` included.  `python -m jepsen_tpu_torch --cpu ... test-all`
 and `analyze DIR` exit 0 in a subprocess; the same ``test-all`` runs
 the queue and kafka demos, whose stored runs `analyze` checks again.
+`fleet status` prints the JAX CLI's text for one port coordinator,
+`fleet work --cpu` runs its cells on the CPU, and `cache
+ls|stats|clear` work on a kernel build directory patched into the
+test's directory (`cache warm` raises `KernelError` without `nvcc`).
 """
 
+import io
 import logging
 import os
 import subprocess
@@ -70,8 +75,9 @@ def test_parse_concurrency_equal_to_jax():
 def test_subcommands_and_demo_checkers(tmp_path, capsys):
     p, _ = tcli.test_all_cmd(DEMOS)
     sub = next(a for a in p._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == ["analyze", "campaign", "obs", "shrink",
-                                   "tail", "test", "test-all", "trace"]
+    assert sorted(sub.choices) == ["analyze", "cache", "campaign", "fleet",
+                                   "obs", "shrink", "tail", "test",
+                                   "test-all", "trace"]
     rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "nope"])
     assert rc == 2 and "nope" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2
@@ -201,3 +207,140 @@ def test_plan_for_equal_to_jax(monkeypatch):
     # only plan_for reads the variable: a checker called directly injects
     # only what its caller gave or installed
     assert tfaults.active_plan() is None
+
+
+# -- fleet and cache ----------------------------------------------------------
+
+def test_fleet_status_text_equal_to_jax(tmp_path, capsys):
+    import json
+    import urllib.request
+
+    from jepsen_tpu_torch import web
+    from jepsen_tpu_torch.fleet import FleetCoordinator
+
+    spec = {"name": "st", "workloads": ["bank"], "seeds": [0, 1],
+            "nemesis-schedule": {"faults": ["skew"], "windows": 1,
+                                 "interval": 0.02, "duration": 0.2,
+                                 "seed": 5},
+            "opts": {"time-limit": 0.2}}
+    coord = FleetCoordinator(spec, str(tmp_path), lease_s=5.0)
+    srv = web.serve(port=0, base=str(tmp_path), background=True,
+                    fleet=coord)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        coord.register({"worker": "w1", "host": "h1", "version": "v3"})
+        code, r = coord.claim({"worker": "w1"})
+        coord.heartbeat({"worker": "w1", "renew": [r["spec"]["run_id"]],
+                         "windows": {"gen": r["windows"]["gen"],
+                                     "digest": r["windows"]["digest"],
+                                     "open": [], "t0": r["windows"]["t0"]}})
+        # freeze the ages the text prints: both reads see one document
+        with urllib.request.urlopen(url + "/fleet/status") as resp:
+            doc = json.loads(resp.read().decode())
+        class Resp(io.BytesIO):
+            def __init__(self, *a, **kw):
+                super().__init__(json.dumps(doc).encode())
+
+        outs = []
+        for mod in (tcli, jcli):
+            argv = ["fleet", "status", "--coordinator", url]
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(urllib.request, "urlopen", Resp)
+                rc = mod.fleet_cmd(mod.single_test_cmd(lambda o: o)[0]
+                                   .parse_args(argv))
+            outs.append((rc, capsys.readouterr().out))
+        assert outs[0] == outs[1]
+        rc, text = outs[0]
+        assert rc == 0 and "fleet st: 0/2 cells done (running)" in text
+        assert "worker w1: host=h1 slots=1 version=v3" in text
+        assert "nemesis schedule: 1 window(s)/gen over skew" in text
+        # and through the socket; with the server gone, exit 2
+        assert tcli.run(suite(), ["fleet", "status", "--coordinator",
+                                  url]) == 0
+        assert "fleet st:" in capsys.readouterr().out
+    finally:
+        srv.server_close()
+        coord.close()
+    assert tcli.run(suite(), ["fleet", "status", "--coordinator",
+                              url]) == 2
+    assert tcli.run(suite(), ["fleet", "status"]) == 2
+    assert tcli.run(suite(), ["fleet", "serve"]) == 2
+    assert tcli.run(suite(), ["fleet", "work"]) == 2
+
+
+def test_fleet_work_cpu_through_the_cli(tmp_path, capsys):
+    from jepsen_tpu_torch import web
+    from jepsen_tpu_torch.campaign import core as ccore
+    from jepsen_tpu_torch.campaign.index import Index
+    from jepsen_tpu_torch.fleet import FleetCoordinator
+
+    spec = {"name": "cw", "workloads": ["append"], "seeds": [0],
+            "opts": {"time-limit": 0.2}}
+    coord = FleetCoordinator(spec, str(tmp_path / "coord"), lease_s=5.0)
+    srv = web.serve(port=0, base=str(tmp_path / "coord"), background=True,
+                    fleet=coord)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        rc = tcli.run(suite(), ["--store-dir", str(tmp_path / "w"), "fleet",
+                                "work", "--cpu", "--coordinator", url,
+                                "--name", "cw0", "--poll", "0.05",
+                                "--upload"])
+        assert rc == 0 and "worker cw0: 1 cells completed" in \
+            capsys.readouterr().out
+        recs = Index(ccore.index_path("cw", str(tmp_path / "coord"))).records
+        assert [r["valid?"] for r in recs] == [True], recs
+        assert os.path.isdir(os.path.join(str(tmp_path / "coord"),
+                                          recs[0]["dir"]))
+    finally:
+        srv.server_close()
+        coord.close()
+
+
+def _build_dir(tmp_path, monkeypatch):
+    from jepsen_tpu_torch.ops import kernels
+
+    d = tmp_path / "build"
+    d.mkdir()
+    (d / "libjt_kernels_0123456789abcdef.so").write_bytes(b"x" * 100)
+    (d / "libjt_native_fedcba9876543210.so").write_bytes(b"y" * 50)
+    (d / "scratch.o").write_bytes(b"z" * 7)
+    monkeypatch.setattr(kernels, "BUILD_DIR", d)
+    return d
+
+
+def test_cache_ls_stats_clear_on_the_build_dir(tmp_path, monkeypatch,
+                                               capsys):
+    import json
+
+    d = _build_dir(tmp_path, monkeypatch)
+    assert tcli.run(suite(), ["cache", "ls"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[:3] == ["libjt_kernels_0123456789abcdef.so        100",
+                       "libjt_native_fedcba9876543210.so         50",
+                       "scratch.o          7"]
+    assert out[3] == f"3 files, 157 bytes ({d})"
+    assert tcli.run(suite(), ["cache", "stats"]) == 0
+    st = json.loads(capsys.readouterr().out)
+    assert st == {"dir": str(d), "files": 3, "bytes": 157, "libraries": [
+        "libjt_kernels_0123456789abcdef.so",
+        "libjt_native_fedcba9876543210.so"]}
+    assert tcli.run(suite(), ["cache", "clear"]) == 0
+    assert capsys.readouterr().out.strip() == \
+        f"cache clear: 3 files removed ({d})"
+    assert os.listdir(d) == []
+    assert tcli.run(suite(), ["cache", "ls"]) == 0
+    assert capsys.readouterr().out.strip() == f"0 files, 0 bytes ({d})"
+
+
+def test_cache_warm_raises_kernel_error_without_nvcc(tmp_path, monkeypatch):
+    from jepsen_tpu_torch.ops.kernels import KernelError
+
+    d = _build_dir(tmp_path, monkeypatch)
+    monkeypatch.setenv("PATH", str(tmp_path / "nothing"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    for argv in (["cache", "warm"], ["cache", "warm", "--json"],
+                 ["fleet", "serve", "spec.json", "--cache-warm"]):
+        with pytest.raises(KernelError, match="nvcc not found"):
+            tcli.run(suite(), argv)
+    assert len(os.listdir(d)) == 3  # nothing removed, nothing built

@@ -10,8 +10,9 @@ the two observations must be equal.  Compile attribution is held to the
 port's rule: `compile_s` books the first call of each (site, shape
 class), `execute_s` every later one, and a transient failure does not
 use up a shape's first sighting.  The metrics federation and staging
-tests (`:137-303`) wait for the fleet, and the tests on the live fleet
-seam (`:524-618`) for `web.py`.
+tests (`:137-303`) are in `test_torch_fleet.py`; the tests on the live
+fleet seam (`:524-618`) wait for the port's web pages and verifier
+routes (ROADMAP A4).
 """
 
 import json

@@ -6,8 +6,10 @@ environment, inherited by children and by daemons started under
 the mark, and the threads left alive; a run that leaves either behind
 exits 1 without printing its last lines.  These tests pin that, the
 process-group kill of `LoopbackSession.execute` on a timeout, a regd run
-under the kill package, and that a telemetric, live-checked `core.run`
-leaves no thread behind whether its workload completes or raises.  Every
+under the kill package, that a telemetric, live-checked `core.run`
+leaves no thread behind whether its workload completes or raises, and
+that a fleet autopilot's spawned ``fleet work`` child carries the run's
+mark and is gone after `close()`.  Every
 check waits with a bound and then asserts.
 """
 
@@ -15,6 +17,7 @@ import io
 import os
 import random
 import signal
+import socket
 import threading
 import time
 import uuid
@@ -269,3 +272,49 @@ def test_live_checked_telemetric_run_leaves_no_thread(tmp_path, raising):
     left = [th.name for th in threading.enumerate()
             if th not in before and th.is_alive()]
     assert left == []
+
+
+def test_autopilot_spawned_worker_carries_the_mark(tmp_path, monkeypatch):
+    """The autopilot's managed worker is a ``python -m jepsen_tpu_torch
+    fleet work --cpu`` child started with this process's environment:
+    `chip_smoke.guarded`'s mark reaches it, it executes the generation's
+    cell, and the drain at the end of `run` (then `close`) leaves no
+    marked process and no server thread."""
+    from jepsen_tpu_torch import web
+    from jepsen_tpu_torch.fleet import Autopilot
+
+    tag = _tag()
+    monkeypatch.setenv(cs.TAG_VAR, tag)
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    seen = {}
+
+    def on_generation(ap, out):
+        seen["pids"] = cs.marked_pids(tag)
+        seen["workers"] = {n: w["proc"].pid for n, w in ap.workers.items()}
+
+    base = str(tmp_path / "store")
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    ap = Autopilot({"name": "marked", "workloads": ["noop"], "seeds": [0]},
+                   base, generations=1, poll_s=0.05, min_workers=1,
+                   max_workers=1, coordinator_url=f"http://127.0.0.1:{port}",
+                   worker_extra=("--cpu",), scale_interval_s=0.2,
+                   on_generation=on_generation)
+    before = set(threading.enumerate())
+    srv = web.serve(port=port, base=base, background=True,
+                    fleet=ap.coordinator)
+    try:
+        t = threading.Thread(target=ap.run, daemon=True)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive(), "the autopilot wedged"
+    finally:
+        ap.close()
+        srv.server_close()
+    assert len(seen["workers"]) == 1, seen
+    assert set(seen["workers"].values()) <= set(seen["pids"]), seen
+    assert ap.coordinator.finished
+    assert _gone(tag) and not ap.workers
+    assert set(threading.enumerate()) <= before | {threading.current_thread()}

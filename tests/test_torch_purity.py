@@ -7,7 +7,10 @@ telemetric, live-checked `core.run` of the `append` demo, and the CLI's
 with auto-shrink, then `obs ingest` and `obs alerts --eval` of that
 store, a warehouse-backed `Index`, the Prometheus exposition, the Knossos
 CLI and `repl.recheck`, all on the CPU) in a fresh
-interpreter must load neither `jax` nor `jepsen_tpu`.  The walk imports
+interpreter must load neither `jax` nor `jepsen_tpu`; nor may the fleet
+(a coordinator on the port's `web.serve`, a `FleetWorker(cpu=True)`
+running and uploading one append cell, an `Autopilot` closing one
+generation, `fleet status` and `cache ls`).  The walk imports
 every module, the telemetry and verifier packages included.  A file of its own, so that the test run
 spreads its child process over its own worker.
 """
@@ -170,6 +173,62 @@ with tempfile.TemporaryDirectory() as d:
     rt = repl.latest(None, base=d)
     rr = repl.recheck(rt, api.Stats())["results"]
     assert 0 < rr["count"] <= len(repl.history(rt)), rr
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("loaded:", bad)
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "loaded: []" in res.stdout
+
+
+def test_fleet_imports_neither_jax_nor_jepsen_tpu():
+    code = """
+import io, sys, tempfile, threading, contextlib
+from jepsen_tpu_torch import web
+from jepsen_tpu_torch import cli as tcli
+from jepsen_tpu_torch import __main__ as tmain
+from jepsen_tpu_torch.campaign import core as ccore
+from jepsen_tpu_torch.campaign.index import Index
+from jepsen_tpu_torch.fleet import Autopilot, FleetCoordinator, FleetWorker
+with tempfile.TemporaryDirectory() as d:
+    spec = {"name": "pure", "workloads": ["append"], "seeds": [0],
+            "opts": {"time-limit": 0.2}}
+    coord = FleetCoordinator(spec, d + "/coord", lease_s=5.0)
+    srv = web.serve(port=0, base=d + "/coord", background=True, fleet=coord)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    w = FleetWorker(url, d + "/w", name="pw", poll_s=0.05, cpu=True,
+                    upload=True)
+    assert w.run() == 1 and w.uploads_done == 1
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli.run(tmain.suite(), ["fleet", "status", "--coordinator",
+                                        url]) == 0
+        assert tcli.run(tmain.suite(), ["cache", "ls"]) == 0
+    srv.server_close()
+    coord.close()
+    recs = Index(ccore.index_path("pure", d + "/coord")).records
+    assert [r["valid?"] for r in recs] == [True], recs
+    ap = Autopilot({"name": "pa", "workloads": ["noop"], "seeds": [0]},
+                   d + "/ap", generations=1, poll_s=0.02)
+    def drain():
+        while not ap.stop.is_set():
+            code, out = ap.coordinator.claim({"worker": "syn"})
+            sp = out.get("spec")
+            if not sp:
+                ap.stop.wait(0.01)
+                continue
+            ap.coordinator.complete({"worker": "syn", "run": sp["run_id"],
+                                     "record": {"run": sp["run_id"],
+                                                "valid?": True}})
+    t = threading.Thread(target=drain, daemon=True)
+    t.start()
+    assert ap.run()["generations"] == 1
+    ap.close()
+    t.join(timeout=10)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("loaded:", bad)
