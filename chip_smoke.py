@@ -96,7 +96,7 @@ Phases, each asserting; any failure exits non-zero:
         `_expand_block` call, bit for bit;
   9. the invariants checkers and the closed predicate on the card, on
      corpora made by copies of `tests/test_invariants.py`'s generators.
-     Each of a-d runs one warm-up and three timed calls (one above 5 s) on
+     Each of a-d runs one warm-up and three timed calls (one above 2 s) on
      one `HistoryIR`, so that only the warm-up packs and infers, and
      prints the times, the pack and `infer_rw` builds, the device part
      (`with_fallback`'s call) and the sweeps per timed call, and peak
@@ -111,7 +111,7 @@ Phases, each asserting; any failure exits non-zero:
         (1,024 keys): valid and `inject_long_fork`;
      c. write skew, `ws_history(pairs=512, n_txns=100,000)`: valid and
         `inject_write_skew`;
-     d. session, `sess_history(n_keys=64, n_txns=50,000)` with pinned
+     d. session, `sess_history(n_keys=64, n_txns=35,000)` with pinned
         keys and without: valid and `inject_session_break`, two LOCF
         launches per check; `predicate.check` on the same `HistoryIR`,
         `infer_rw` run once for both;
@@ -188,8 +188,8 @@ Phases, each asserting; any failure exits non-zero:
  14. a Jepsen test run on the card, through `python -m jepsen_tpu_torch`'s
      suite (`cli.run(__main__.suite(), argv)`, in process) on
      the in-process sim cluster, with a store under `build/`:
-     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 25000
-        --time-limit 120` (50 workers, 50,000 ops): exit 0, valid, no
+     a. `test-all --only append -n n1 ... -n n5 -c 10n --ops 20000
+        --time-limit 120` (50 workers, 40,000 ops): exit 0, valid, no
         error, LOCF launches; the workload's time and rate, `save_0`, the
         check and its part on the card (infer and sweeps), the history's
         size, launches and peak device memory; the backward edges of each
@@ -201,7 +201,7 @@ Phases, each asserting; any failure exits non-zero:
         `store.save_0`, then `analyze`: invalid, G1c, seg-OR launches,
         SVGs under the run's `elle/`; card == CPU, the dicts and the SVG
         bytes;
-     d. `test-all --only wr ... --ops 25000`: valid or unknown (as
+     d. `test-all --only wr ... --ops 20000`: valid or unknown (as
         `tests/test_workloads.py` allows), card == CPU on its history;
      e. one child process, `python -X importtime -m jepsen_tpu_torch
         test-all --only append --ops 2000` with no `--cpu`: exit 0,
@@ -210,7 +210,7 @@ Phases, each asserting; any failure exits non-zero:
  15. the JAX package's other nine demos as Jepsen tests on the card,
      through the same suite, each at its `_wl` defaults, into a store
      under `build/`:
-     a. `test-all --only <demo> -n n1 ... -n n5 --ops 10000 -c 10n`
+     a. `test-all --only <demo> -n n1 ... -n n5 --ops 7500 -c 10n`
         (50 workers) for bank, long-fork, set, queue, causal, write-skew
         and session, `-c 2n` (10 workers) for kafka, and `-c 2n --ops
         1000` for lin-register (BASELINE config 1's size): exit 0 and
@@ -288,7 +288,7 @@ Phases, each asserting; any failure exits non-zero:
         invalid, its cycles found by the sweeps on the card (seg-OR
         launches);
      c. the regd suite on three daemons on free ports under the kill
-        package (`RegDB.kill`, a kill or a restart every 4 s) for 20 s:
+        package (`RegDB.kill`, a kill or a restart every 4 s) for 15 s:
         valid, with a kill and a restart completed;
      each run's workload rate, its ok, fail and info txns, its fault ops
      by `f` with their completion types, `save_0`, the check and its
@@ -441,7 +441,44 @@ Phases, each asserting; any failure exits non-zero:
         (`chiprun_out/21c_metrics.txt`); `fleet status` prints its
         workers, their versions and the autopilot; `cache warm` answers
         the kernel library already built, `cache ls` and `cache stats`
-        list it.
+        list it;
+     and, from 21a's running coordinator once both workers registered,
+     `/fleet` (naming both) and `/campaign/<n>/live` (naming a worker
+     that holds a cell), 200 each.
+ 22. the web server and the remote verifier on the card (`start_web`,
+     `check_web`), logged against a budget of `WEB_BUDGET_S` of wall
+     time, each step timed; the server, ``python -m jepsen_tpu_torch
+     --store-dir S serve --ingest -p PORT`` on a port the OS reports
+     free, starts after phase 17, beside phases 18-21:
+     a. 18a's append demo (5 nodes, 50 workers, `LIVE_TXNS` txns) with
+        ``"live-check": {"url": "http://127.0.0.1:PORT", "budget-s":
+        60}`` through `core.run` on the card: state ``ok`` (never
+        degraded), the seal equal to the server's batch check, its
+        verdict the run's stored check's, its digest the CPU twin's (a
+        session on the CPU in a worker); ``GET /verdict/<session>`` 200
+        with the same ``valid?``;
+     b. 18b's stored history (one G1c) over ``POST
+        /ingest/<s>?cursor=`` in `LIVE_SEG`-op segments; at half the
+        stream ``kill -9`` of the server, which starts again on the same
+        store and port: ``GET /verdict`` replays its journal to the
+        digest before the kill, the stream resumes from the last acked
+        cursor, and the seal is G1c, equal to `list_append.check` of the
+        whole history on the card (and that to its CPU twin in a
+        worker), its digest 18b's; the replay's, the seal's and the
+        kill-to-ready times;
+     c. the stores of phases 14, 18, 19a-19c and 20c laid over the
+        server's (`merge_stores`: hard links, the verifier sessions
+        copied; 19d's cells run without telemetry, so its grid links
+        timelines that have no spans) and ingested into its warehouse
+        while it restarts; then ``/``, ``/campaigns``, each campaign's
+        page with its ``/live``, ``/trend``, ``/forensics``,
+        ``/witness-diff`` and ``/profile/``, each witness run's
+        ``/run/<dir>`` and ``/run/<dir>/witness``, ``/telemetry/``,
+        ``/live/`` and ``/timeline/`` of 18a's run, ``/verifier``, each
+        ``/verifier/<s>`` and ``/alerts``; then every same-origin link of
+        the index and campaign pages one level deep, ``/zip/`` once:
+        every response 200; the page count and the slowest page; the
+        server ends by SIGTERM and writes its launch counts.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
@@ -452,13 +489,15 @@ call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 phase 19 and its in-process analyses and re-checks, 20c's campaign and
 20d's re-check and Knossos CLI calls, each child of 21a and 21b's
 autopilot loop (its in-process shrink; the workers it spawns are not
-counted), and read just after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
+counted), 22a's `core.run`, 22b's batch check and the restarted 22b
+server (the one killed with ``kill -9`` takes its counts with it), and
+read just after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
 Longer output (the profiler's tables) goes to `chiprun_out/`.  Three
 spawned worker processes (`Twins`) run the CPU twins of 6c, 7d, 12c,
-14b, 14c, 15c, 16, 17, 19 and 21a and, from the end of phase 6 on, make the seeded
+14b, 14c, 15c, 16, 17, 19, 21a and 22 and, from the end of phase 6 on, make the seeded
 histories of phases 9-13, which those phases read back from files; the
 comparisons of 6c, 7d, 12c, 14b, 14c and 16a, and their lines, come
 after phase 19, and the workers are stopped before the script exits.
@@ -540,12 +579,14 @@ BANK_TEST = {"total-amount": 100}
 N_BANK_READS = 1_000_000     # 9a: the reduction at scale, a PackedBank
 LF_KW = dict(groups=256, group_size=4, n_reads=50_000, seed=0)     # 9b
 WS_KW = dict(pairs=512, n_txns=100_000, seed=0)                    # 9c
-#: 9d at 50,000 txns since the script took 1,254.2 s on a slower H100
-#: host
-#: (100,000 before: the unpinned host session check is quadratic)
-SESS_KW = dict(n_keys=64, n_txns=50_000, seed=0)                   # 9d
+#: 9d at 35,000 txns since phase 22 needed the room (50,000 since the
+#: script took 1,254.2 s on a slower H100 host, 100,000 before: the
+#: unpinned host session check is quadratic)
+SESS_KW = dict(n_keys=64, n_txns=35_000, seed=0)                   # 9d
 N_INV_CMP = 20_000           # 9f: txns where the CPU twin takes seconds
-INV_ONE_CALL_S = 5.0         # 9: above this a warm-up, one timed call
+#: 9: above this a warm-up, one timed call (5 s until phase 22 needed
+#: the room)
+INV_ONE_CALL_S = 2.0
 #: 10: the kafka corpus's generator knobs (tests/test_queue_checkers.py)
 KAFKA_GEN = dict(key_count=3, crash_frac=0.05, subscribe_frac=0.5,
                  txn_frac=0.3)
@@ -598,11 +639,12 @@ N_STREAM_CMP = 16_384        # 13d: card == CPU
 #: 14: a Jepsen test run through `python -m jepsen_tpu_torch`'s suite, the
 #: flags of the JAX package's demo (`-n n1 ... -n n5 -c 10n`: 50 workers)
 RUN_NODES = ("n1", "n2", "n3", "n4", "n5")
-#: 14a: append txns (50,000 history ops); 100,000 until phase 18 needed
+#: 14a: append txns (40,000 history ops); 100,000 until phase 18 needed
 #: its room (the workload, `save_0` and 14b's decode about 25 s of it),
-#: 50,000 until the script took 1,254.2 s on a slower H100 host
-RUN_OPS = 25_000
-RUN_WR_OPS = 25_000          # 14d
+#: 50,000 until the script took 1,254.2 s on a slower H100 host, 25,000
+#: until phase 22 needed the room
+RUN_OPS = 20_000
+RUN_WR_OPS = 20_000          # 14d
 RUN_TIME_LIMIT = 120
 RUN_CHILD_OPS = 2_000        # 14e
 
@@ -611,15 +653,16 @@ RUN_CHILD_OPS = 2_000        # 14e
 #: config 1's 1,000 ops from 10 workers, kafka at 10a's 10 clients.
 #: causal first: its check, and its CPU twin in a worker, are the
 #: longest (the host session walker), so the twin runs beside the rest.
-#: 10,000 ops each since the script took 1,124.6 s on a slower H100
-#: host (20,000 before; the injected runs of 15b keep 20,000, where
-#: their rates give about 10 anomalies a run)
+#: 7,500 ops each since phase 22 needed the room (10,000 since the
+#: script took 1,124.6 s on a slower H100 host, 20,000 before; the
+#: injected runs of 15b keep 20,000, where their rates give about 10
+#: anomalies a run)
 DEMO_RUNS = (
-    ("causal", "10n", 10_000), ("lin-register", "2n", 1_000),
-    ("bank", "10n", 10_000), ("long-fork", "10n", 10_000),
-    ("set", "10n", 10_000), ("queue", "10n", 10_000),
-    ("kafka", "2n", 10_000), ("write-skew", "10n", 10_000),
-    ("session", "10n", 10_000),
+    ("causal", "10n", 7_500), ("lin-register", "2n", 1_000),
+    ("bank", "10n", 7_500), ("long-fork", "10n", 7_500),
+    ("set", "10n", 7_500), ("queue", "10n", 7_500),
+    ("kafka", "2n", 7_500), ("write-skew", "10n", 7_500),
+    ("session", "10n", 7_500),
 )
 #: 15b: (demo, -c, --ops, test-map keys the run adds, the anomaly they
 #: must show)
@@ -690,8 +733,9 @@ SKEW_TIME_LIMIT = 5.0
 SKEW_INTERVAL = 0.5
 #: 17c: the regd suite on three daemons under the kill package, a kill
 #: or a restart every `REGD_KILL_INTERVAL` s, for `REGD_KILL_TIME_LIMIT` s
+#: (20 until phase 22 needed the room)
 REGD_KILL_INTERVAL = 4.0
-REGD_KILL_TIME_LIMIT = 20
+REGD_KILL_TIME_LIMIT = 15
 
 #: 18: telemetry and live checking on the card.  18a: the append demo on
 #: the sim cluster, 50 workers (`-n n1 ... -n n5 -c 10n`), `LIVE_TXNS` txns,
@@ -729,7 +773,9 @@ OBS_CAMPAIGN = "obs-append"
 OBS_RULE = "card-peak-memory"
 #: what phase 20 reads of earlier phases: 14c's injected stored run and
 #: its result dict (``"14c"``), 18's store and 18a's run dir (``"18"``);
-#: what phase 21 reads: 19a's verdicts by cell key (``"19a"``)
+#: what phase 21 reads: 19a's verdicts by cell key (``"19a"``); what
+#: phase 22 reads: those, 18b's stored run and its sealed digest
+#: (``"18b"``) and phase 20's store (``"20"``)
 SHARED: dict = {}
 
 #: phase 21 (the fleet): its wall-time budget, which it logs itself
@@ -744,6 +790,10 @@ FLEET_LABELS = ("append-a", "append-b", "append-c", "bank-a", "bank-b",
 FLEET_LEASE_S = 3.0
 AP_GENERATIONS = 3
 AP_SLOW_LABEL = "append-b"
+
+#: phase 22 (the web server and the remote verifier): its wall-time
+#: budget, which it logs itself against
+WEB_BUDGET_S = 60.0
 
 #: worker processes for the work that needs no card (`Twins`), and the
 #: torch threads of 14b's and 14c's twins there
@@ -1658,7 +1708,7 @@ def main(argv=None) -> int:
 
 
 def phases(opts) -> list[str]:
-    """Phases 0-21 (see the module docstring); returns the lines to print
+    """Phases 0-22 (see the module docstring); returns the lines to print
     last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
@@ -2012,6 +2062,8 @@ def phases(opts) -> list[str]:
     submit_triage_twins(early)
     # phase 21a's fleet, in child processes beside phases 18-20
     fleet = start_fleet(twins)
+    # phase 22's server, its start-up beside phases 18-21
+    web = start_web()
 
     # ---- 18. telemetry and live checking on the card ----------------------
     t18 = check_live(dev, launches, twins)
@@ -2028,6 +2080,10 @@ def phases(opts) -> list[str]:
     # ---- 21. the fleet on the card ------------------------------------------
     t21 = check_fleet(launches, twins, fleet)
     log(f"[21] phase 21 took {t21:.1f} s (budget {FLEET_BUDGET_S:.0f} s)")
+
+    # ---- 22. the web server and the remote verifier on the card -----------
+    t22 = check_web(dev, launches, twins, web)
+    log(f"[22] phase 22 took {t22:.1f} s (budget {WEB_BUDGET_S:.0f} s)")
 
     # ---- the CPU twins' comparisons ----------------------------------------
     twins.finish()
@@ -4131,17 +4187,28 @@ def register_block() -> None:
     plan.register_workload("regd-block", regd_block_test)
 
 
-def counted_cli(out: str, argv: list, block: bool = False) -> int:
+def counted_cli(out: str, argv: list, block: bool = False,
+                term: bool = False) -> int:
     """`python -m jepsen_tpu_torch ARGV` in this process (`runpy`, as
     ``-m`` runs it), the launch counters set to 0 just before and
     written with the exit code to the JSON file `out` just after.  With
-    `block`, 19d's ``regd-block`` workload is registered first."""
+    `block`, 19d's ``regd-block`` workload is registered first; with
+    `term`, SIGTERM ends the command as `SystemExit` (exit code 143), so
+    that a server that runs until it is stopped closes its service and
+    writes its counts."""
     import runpy
 
     from jepsen_tpu_torch.ops import fill, scan
 
     if block:
         register_block()
+    if term:
+        import signal
+
+        def stop(signum, _frame):
+            raise SystemExit(128 + signum)
+
+        signal.signal(signal.SIGTERM, stop)
     sys.argv = ["jepsen_tpu_torch", *argv]
     fill.LAUNCHES = 0
     scan.LAUNCHES = 0
@@ -4164,12 +4231,12 @@ class Child:
     its counts."""
 
     def __init__(self, name: str, base: str, argv: list,
-                 block: bool = False):
+                 block: bool = False, term: bool = False):
         self.name, self.argv = name, argv
         self.out = os.path.join(base, f"{name}.json")
         self.log_path = os.path.join(base, f"{name}.log")
         code = ("import sys, chip_smoke; sys.exit(chip_smoke.counted_cli("
-                f"sys.argv[1], sys.argv[2:], block={block}))")
+                f"sys.argv[1], sys.argv[2:], block={block}, term={term}))")
         self.t0 = time.time()
         with open(self.log_path, "w") as log_f:
             self.proc = subprocess.Popen(
@@ -4690,7 +4757,8 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
     docstring).  The counters are set to 0 just before 18a's `core.run`
     and 18b's seal and read just after each; the sums go into the main
     path's `launches`.  18c's per-session twins and 18f's run in
-    `twins`.  The store stays for phase 20 (`SHARED["18"]`).  Returns
+    `twins`.  The store stays for phases 20 and 22 (`SHARED["18"]`,
+    `SHARED["18b"]`).  Returns
     the seconds it took."""
     import contextlib
     import io
@@ -4854,6 +4922,7 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
             sealed["incremental"]["anomaly-types"], sealed
         assert n["seg_or"] > 0, n
         digest_b = sealed["digest"]
+        SHARED["18b"] = (db_, digest_b)
         log(f"[18b] 18a's history with one G1c (ops {changed}), "
             f"{len(lines)} ops in {len(range(0, len(lines), LIVE_SEG))} "
             f"segments of {LIVE_SEG} through VerifierService.ingest and "
@@ -4962,7 +5031,7 @@ def check_live(dev: torch.device, launches: dict, twins: Twins) -> float:
     except BaseException:
         shutil.rmtree(base, ignore_errors=True)
         raise
-    # the store stays for phase 20, which removes it
+    # the store stays for phases 20 and 22; 22 removes it
     return time.perf_counter() - t0
 
 
@@ -5029,8 +5098,9 @@ def check_obs(launches: dict) -> float:
     (see the module docstring).  The counters are set to 0 just before
     20d's re-check, the Knossos CLI's calls and 20c's campaign and read
     just after each; the sums go into the main path's `launches`.  Each
-    step's time is logged against `OBS_BUDGET_S`.  Removes phase 18's
-    store and its own.  Returns the seconds it took."""
+    step's time is logged against `OBS_BUDGET_S`.  Leaves phase 18's
+    store and its own to phase 22, which serves and then removes them
+    (they go here when a step fails).  Returns the seconds it took."""
     import contextlib
     import io
     import shutil
@@ -5426,9 +5496,11 @@ def check_obs(launches: dict) -> float:
             f"with {len(samples)} samples, {len(wh_gauges)} warehouse "
             f"gauges and the firing ALERTS series; 20e took "
             f"{steps['20e']:.2f} s")
-    finally:
+    except BaseException:
         shutil.rmtree(base, ignore_errors=True)
         shutil.rmtree(base18, ignore_errors=True)
+        raise
+    SHARED["20"] = base
     t = time.perf_counter() - t20
     log(f"[20] steps (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
                                        sorted(steps.items()))
@@ -5450,12 +5522,29 @@ def fleet_spec(base: str) -> str:
     return path
 
 
-def http_text(url: str, timeout: float = 10.0) -> str:
-    """GET `url` (a server on 127.0.0.1): its body as text."""
+def http_call(url: str, data: bytes | None = None,
+              timeout: float = 120.0) -> tuple[int, bytes]:
+    """GET `url` (POST `data` when given) on 127.0.0.1: (status, body),
+    an HTTP error's too."""
+    import urllib.error
     import urllib.request
 
-    with urllib.request.urlopen(url, timeout=timeout) as r:
-        return r.read().decode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_text(url: str, timeout: float = 10.0) -> str:
+    """GET `url` (a server on 127.0.0.1): its body as text; an answer
+    other than 200 raises `OSError`."""
+    code, body = http_call(url, timeout=timeout)
+    if code != 200:
+        raise OSError(f"{url}: HTTP {code}")
+    return body.decode()
 
 
 def http_json(url: str, timeout: float = 10.0):
@@ -5463,14 +5552,15 @@ def http_json(url: str, timeout: float = 10.0):
     return json.loads(http_text(url, timeout))
 
 
-def wait_up(url: str, proc, seconds: float = 90.0) -> dict:
-    """Poll ``/fleet/status`` at `url` until the coordinator answers (its
-    process `proc` still running); returns the status."""
+def wait_up(url: str, proc, seconds: float = 90.0,
+            path: str = "/fleet/status") -> str:
+    """Poll `path` at `url` until the server answers 200 (its process
+    `proc` still running); returns the answer's text."""
     t_end = time.monotonic() + seconds
     while True:
-        assert proc.poll() is None, f"the coordinator exited {proc.poll()}"
+        assert proc.poll() is None, f"the server exited {proc.poll()}"
         try:
-            return http_json(url + "/fleet/status", timeout=2.0)
+            return http_text(url + path, timeout=2.0)
         except OSError:
             assert time.monotonic() < t_end, f"{url} did not come up"
             time.sleep(0.1)
@@ -5575,6 +5665,22 @@ def run_fleet(st: dict) -> None:
         st["killed"] = workers.pop(st["victim"]["worker"])
         st["killed"].kill9()
         st["t_kill"] = time.time()
+        # the dashboards of the running coordinator, once both workers
+        # have registered (the survivor does before any cell can end)
+        t_end = time.monotonic() + 120.0
+        while set(http_json(url + "/fleet/status")["workers"]) < \
+                {st["victim"]["worker"], *workers}:
+            assert time.monotonic() < t_end, "a worker never registered"
+            time.sleep(0.1)
+        st["pages"] = {"/fleet": http_text(url + "/fleet")}
+        live = f"/campaign/{st['cells'][0].campaign}/live"
+        while True:  # a worker holds a cell nearly always
+            st["pages"][live] = page = http_text(url + live)
+            if any(f"<td>{w}</td>" in page
+                   for w in (st["victim"]["worker"], *workers)) or \
+                    time.monotonic() > t_end:
+                break
+            time.sleep(0.1)
         st["a"] = ka.wait(timeout=400)
         (wname, survivor), = workers.items()
         try:
@@ -5606,7 +5712,7 @@ def run_fleet(st: dict) -> None:
         t0 = time.perf_counter()
         st["kb"] = kb = opened(Child("21a-coordinator-b", base,
                                     st["serve"]))
-        st["sb"] = wait_up(url, kb.proc)
+        st["sb"] = json.loads(wait_up(url, kb.proc))
         st["status_b"] = status_child(url)
         st["pre"] = http_json(url + "/fleet/status")["digest"]
         kb.kill9()
@@ -5730,6 +5836,17 @@ def check_fleet(launches: dict, twins: Twins, st: dict) -> float:
             f"--backend cuda --upload` children; {victim['worker']} held "
             f"{victim['run']} {st['t_claim']:.2f} s after the coordinator "
             f"started: kill -9")
+        fleet_page = st["pages"]["/fleet"]
+        live_page = st["pages"][f"/campaign/{name}/live"]
+        assert f"fleet — {name}" in fleet_page and all(
+            f"<td>{w}</td>" in fleet_page
+            for w in (victim["worker"], *st["workers"])), fleet_page
+        assert "runs done" in live_page and any(
+            f"<td>{w}</td>" in live_page
+            for w in (victim["worker"], *st["workers"])), live_page
+        log(f"[21a] the running coordinator's /fleet ({len(fleet_page)} B) "
+            f"names both workers, /campaign/{name}/live ({len(live_page)} "
+            f"B) the workers that hold a cell: 200 each")
         rc_a, n, out_a, t_a = st["a"]
         add(n)
         wname, rc_w, n_w, out_w, _ = st["w"]
@@ -5916,6 +6033,371 @@ def check_fleet(launches: dict, twins: Twins, st: dict) -> float:
                                        sorted(steps.items()))
         + f" (21a from its start after phase 17); {t:.1f} s from the "
         f"phase's own start, of the {FLEET_BUDGET_S:.0f} s budget")
+    return t
+
+
+def la_run_cpu(run_dir: str, models) -> dict:
+    """22b's twin: `list_append.check` of the stored run at `run_dir`
+    on the CPU."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checkers.elle import list_append
+
+    torch.set_num_threads(APPEND_TWIN_THREADS)
+    h = store.load(run_dir)["history"].materialize()
+    return list_append.check(h, list(models), device="cpu")
+
+
+def merge_stores(dst: str, srcs) -> dict:
+    """Lay the stores `srcs` over the store `dst` at their own relative
+    paths, so that one server's pages read them all (a campaign's cells
+    name their run dirs relative to its store): every file hard-linked,
+    the verifier's session dirs copied (a service may write to a
+    session it is asked about), warehouses and symlinks left out, a
+    file already in `dst` kept.  Returns the counts."""
+    import shutil
+
+    n = {"linked": 0, "copied": 0, "kept": 0}
+    for src in srcs:
+        for root, dirs, files in os.walk(src):
+            rel = os.path.relpath(root, src)
+            dirs[:] = [d for d in dirs
+                       if not os.path.islink(os.path.join(root, d))]
+            os.makedirs(os.path.join(dst, rel), exist_ok=True)
+            copy = rel.split(os.sep)[0] == "verifier"
+            for fn in files:
+                p = os.path.join(root, fn)
+                q = os.path.join(dst, rel, fn)
+                if fn.startswith("warehouse.sqlite") or os.path.islink(p):
+                    continue
+                if os.path.exists(q):
+                    n["kept"] += 1
+                elif copy:
+                    shutil.copy2(p, q)
+                    n["copied"] += 1
+                else:
+                    os.link(p, q)
+                    n["linked"] += 1
+    return n
+
+
+def start_web() -> dict:
+    """Start phase 22's server after phase 17, beside phases 18-20, so
+    that its start-up overlaps them: ``python -m jepsen_tpu_torch
+    --store-dir S serve --ingest -p PORT`` (`counted_cli`, SIGTERM its
+    graceful end) on a port the OS reports free, S a store under
+    `build/`, every request to 127.0.0.1 whatever proxy the host names.
+    Returns the phase's state; the child is registered with `opened`."""
+    import shutil
+
+    base = os.path.join(HERE, "build", "chip_smoke_web")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    port = free_base(1)
+    argv = ["--store-dir", base, "serve", "--ingest", "-p", str(port)]
+    proxy = {k: os.environ.get(k) for k in ("NO_PROXY", "no_proxy")}
+    for k in proxy:
+        os.environ[k] = "127.0.0.1,localhost"
+    try:
+        child = opened(Child("22-serve", base, argv, term=True))
+    finally:
+        for k, v in proxy.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"base": base, "url": f"http://127.0.0.1:{port}", "argv": argv,
+            "child": child, "t0": time.perf_counter()}
+
+
+def check_web(dev: torch.device, launches: dict, twins: Twins,
+              st: dict) -> float:
+    """Phase 22: the web server and the remote verifier on the card (see
+    the module docstring), on the ``serve --ingest`` child `start_web`
+    started.  The counters are set to 0 just before 22a's `core.run`
+    and 22b's batch check in this process and read just after each;
+    the restarted child's are read when SIGTERM ends it (the child
+    killed with ``kill -9`` takes its counts with it).  The sums go into
+    the main path's `launches`.  22a's and 22b's CPU twins run in
+    `twins`, compared in `twins.finish`.  Removes the phase's store and
+    the stores of phases 18 and 20.  Returns the seconds it took from
+    its own start."""
+    import re
+    import shutil
+
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.__main__ import DEMOS
+    from jepsen_tpu_torch.checkers.elle import list_append
+    from jepsen_tpu_torch.generator import core as g
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.telemetry import warehouse
+
+    t22 = time.perf_counter()
+    steps = {}
+    base, url, argv = st["base"], st["url"], st["argv"]
+    base18, da18 = SHARED["18"]
+    db_, digest_b = SHARED["18b"]
+    base20 = SHARED["20"]
+    proxy = {k: os.environ.get(k) for k in ("NO_PROXY", "no_proxy")}
+    for k in proxy:
+        os.environ[k] = "127.0.0.1,localhost"
+    n22 = {"locf": 0, "seg_or": 0}
+
+    def zero():
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+
+    def count():
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+        for kname in n22:
+            n22[kname] += n[kname]
+        return n
+
+    def get_json(path):
+        code, body = http_call(url + path)
+        return code, json.loads(body)
+
+    try:
+        # ---- 22a. a test run live-checked over HTTP ------------------------
+        child = st["child"]
+        wait_up(url, child.proc, 120.0, "/verifier")
+        up = time.perf_counter() - st["t0"]
+        t = DEMOS["append"]({"nodes": list(RUN_NODES),
+                             "concurrency": 10 * len(RUN_NODES), "seed": 0})
+        t["generator"] = g.limit(LIVE_TXNS, t["generator"])
+        t.update({"store-dir": base,
+                  "live-check": {"url": url, "budget-s": 60}})
+        zero()
+        ta = time.perf_counter()
+        done = core.run(t)
+        ta = time.perf_counter() - ta
+        n = count()
+        res = done["results"]
+        lc = res["live-check"]
+        da = store.test_dir(done)
+        assert res["valid?"] is True and "error" not in res, res
+        assert lc["state"] == "ok", lc
+        assert lc["ops"] == len(done["history"]) == 2 * LIVE_TXNS, lc
+        assert (lc["valid?"], lc["anomaly-types"]) == \
+            (res["valid?"], res["anomaly-types"]), (lc, res)
+        assert lc["seal"] == {"equal": True, "digest": lc["digest"]}, lc
+        assert n["locf"] > 0, n
+        code, v = get_json(f"/verdict/{lc['session']}")
+        assert code == 200 and v["valid?"] is res["valid?"], (code, v)
+        twins.submit("22a", live_cpu, da)
+
+        def compare_22a(got, t_cpu, want=lc["digest"]):
+            assert got["digest"] == want and got["equal"], (got, want)
+            log(f"[22a] the stored history through a session on the CPU "
+                f"in a worker, segments of {LIVE_SEG}, sealed: digest "
+                f"{got['digest']}, {got['anomaly-types']}, the seal's, in "
+                f"{t_cpu:.2f} s")
+
+        twins.later("22a", compare_22a)
+        steps["22a"] = ta
+        log(f"[22a] the server `serve --ingest` up {up:.2f} s after its "
+            f"start (beside phases 18-21); the append demo, "
+            f"{len(RUN_NODES)} nodes, {10 * len(RUN_NODES)} workers, "
+            f"{LIVE_TXNS} txns, live-checked over HTTP (budget 60 s) "
+            f"through core.run: {ta:.2f} s; valid? {res['valid?']}; the "
+            f"session {lc['session']}: {lc['ops']} ops, state "
+            f"{lc['state']}, sealed equal to the server's batch check on "
+            f"the card, digest {lc['digest']}, equal to the run's stored "
+            f"check; GET /verdict 200, valid? {v['valid?']}; launches in "
+            f"this process (the stored check) {n}")
+
+        # ---- 22b. kill -9 in mid-session ---------------------------------
+        h = store.load(db_)["history"].materialize()
+        lines = [json.dumps(op.to_dict()).encode() + b"\n" for op in h]
+        sess = "g1c-http"
+        tb = time.perf_counter()
+        cur, k = 0, 0
+        while k < len(lines) // 2:
+            seg = b"".join(lines[k:k + LIVE_SEG])
+            code, body = http_call(f"{url}/ingest/{sess}?cursor={cur}", seg)
+            r = json.loads(body)
+            assert code == 200 and r["cursor"] == cur + len(seg), (code, r)
+            cur, k = r["cursor"], k + LIVE_SEG
+        code, pre = get_json(f"/verdict/{sess}")
+        assert code == 200, pre
+        t_half = time.perf_counter() - tb
+        child.kill9()
+        closed(child)
+        t_kill = time.perf_counter()
+        st["child"] = child = opened(Child("22-serve-b", base, argv,
+                                           term=True))
+        # while it starts: the batch check on the card, the stores of
+        # phases 14, 18, 19 and 20 laid over the server's, its warehouse
+        zero()
+        tc = time.perf_counter()
+        batch = list_append.check(h, list(LIVE_MODELS), device=dev)
+        tc = time.perf_counter() - tc
+        n = count()
+        assert batch["valid?"] is False and "G1c" in \
+            batch["anomaly-types"], batch
+        assert n["seg_or"] > 0, n
+        twins.submit("22b", la_run_cpu, db_, LIVE_MODELS)
+
+        def compare_22b(got, t_cpu, want=batch):
+            assert got == want, (got, want)
+            log(f"[22b] list_append.check of the stored history on the CPU "
+                f"in a worker: the card's dict ({got['anomaly-types']}), "
+                f"in {t_cpu:.2f} s")
+
+        twins.later("22b", compare_22b)
+        tm = time.perf_counter()
+        run14 = os.path.dirname(os.path.dirname(SHARED["14c"][0]))
+        _, _, triage = triage_paths()
+        # 19d's cells run without telemetry: their campaign grid links
+        # timelines that have no spans, which the page answers 404
+        srcs = [run14, base18, triage["a"], triage["b"], triage["c"],
+                os.path.join(base20, "c")]
+        merged = merge_stores(base, srcs)
+        with warehouse.Warehouse(warehouse.warehouse_path(base)) as wh:
+            ingested = wh.ingest_store(base)
+            # a run whose spans stitched into a trace: its /timeline/
+            (tl_run,), = wh.query(
+                "SELECT run FROM trace_spans WHERE run IS NOT NULL "
+                "ORDER BY run LIMIT 1")[1]
+        tm = time.perf_counter() - tm
+        wait_up(url, child.proc, 120.0, "/verifier")
+        t_ready = time.perf_counter() - t_kill
+        tr = time.perf_counter()
+        code, post = get_json(f"/verdict/{sess}")
+        t_replay = time.perf_counter() - tr
+        assert code == 200 and post["digest"] == pre["digest"], (pre, post)
+        tr2 = time.perf_counter()
+        while k < len(lines):
+            seg = b"".join(lines[k:k + LIVE_SEG])
+            code, body = http_call(f"{url}/ingest/{sess}?cursor={cur}", seg)
+            r = json.loads(body)
+            assert code == 200 and r["cursor"] == cur + len(seg), (code, r)
+            cur, k = r["cursor"], k + LIVE_SEG
+        t_rest = time.perf_counter() - tr2
+        ts = time.perf_counter()
+        code, body = http_call(f"{url}/verifier/{sess}/seal", b"")
+        t_seal = time.perf_counter() - ts
+        sealed = json.loads(body)
+        assert code == 200 and sealed["equal"] is True, (code, sealed)
+        sv = sealed["verdict"]
+        assert (sv["valid?"], sv["anomaly-types"]) == \
+            (batch["valid?"], batch["anomaly-types"]), (sv, batch)
+        assert sealed["digest"] == digest_b, (sealed["digest"], digest_b)
+        steps["22b"] = time.perf_counter() - tb
+        log(f"[22b] 18b's history ({len(h)} ops, one G1c) over POST "
+            f"/ingest/{sess}?cursor= in segments of {LIVE_SEG}: half "
+            f"({len(lines) // 2} ops) in "
+            f"{t_half:.2f} s, verdict digest {pre['digest']}; kill -9; "
+            f"restarted on the same store and port: ready {t_ready:.2f} s "
+            f"after the kill; GET /verdict replayed the journal to the "
+            f"same digest in {t_replay:.2f} s; the rest resumed from the "
+            f"last acked cursor in {t_rest:.2f} s; seal {t_seal:.4f} s: "
+            f"{sv['anomaly-types']}, equal, digest {sealed['digest']} = "
+            f"18b's; list_append.check of the whole history on the card "
+            f"(in this process, during the restart) {tc:.4f} s: "
+            f"{batch['anomaly-types']}, launches {n}")
+
+        # ---- 22c. the pages ------------------------------------------------
+        tp = time.perf_counter()
+        times = {}
+
+        def page(path):
+            t0 = time.perf_counter()
+            code, body = http_call(url + path)
+            times[path] = time.perf_counter() - t0
+            assert code == 200, (path, code, body[:300])
+            return body.decode(errors="replace")
+
+        def links(text):
+            return [x for x in re.findall(r'href="(/[^"]*)"', text)]
+
+        from urllib.parse import quote
+
+        cdir = os.path.join(base, "campaigns")
+        names = sorted(f[:-len(".jsonl")] for f in os.listdir(cdir)
+                       if f.endswith(".jsonl"))
+        assert set(TRIAGE_SPECS) | {OBS_CAMPAIGN} <= set(names), names
+        wit = []
+        for nm in names:
+            with open(os.path.join(cdir, nm + ".jsonl")) as f:
+                wit += [r["dir"] for r in map(json.loads, f)
+                        if (r.get("witness") or {}).get("ops")
+                        and r.get("dir")]
+        assert wit, names
+        rel18 = quote(os.path.relpath(da18, base18))
+        sessions = sorted(os.listdir(os.path.join(base, "verifier")))
+        explicit = ["/", "/campaigns", "/verifier", "/alerts",
+                    f"/telemetry/{rel18}", f"/live/{rel18}",
+                    f"/timeline/{quote(tl_run)}"]
+        for nm in names:
+            q = quote(nm)
+            explicit += [f"/campaign/{q}", f"/campaign/{q}/live",
+                         f"/campaign/{q}/trend", f"/campaign/{q}/forensics",
+                         f"/campaign/{q}/witness-diff", f"/profile/{q}"]
+        for d in sorted(set(wit)):
+            explicit += [f"/run/{quote(d)}", f"/run/{quote(d)}/witness"]
+        explicit += [f"/verifier/{quote(s)}" for s in sessions]
+        text = {p: page(p) for p in explicit}
+        assert sess in text["/verifier"] and lc["session"] in \
+            text["/verifier"], text["/verifier"][-2000:]
+        def dir_bytes(href):
+            d = os.path.join(base, unquote(href[len("/zip/"):]))
+            return sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(d) for f in fs)
+
+        from urllib.parse import unquote
+
+        hrefs = []
+        for src_page in ["/"] + [f"/campaign/{quote(nm)}" for nm in names]:
+            hrefs += [x for x in links(text[src_page])
+                      if x not in text and x not in hrefs]
+        # /zip/ once: the smallest run dir's
+        zips = sorted((x for x in hrefs if x.startswith("/zip/")),
+                      key=dir_bytes)
+        zipped = zips[0] if zips else None
+        followed = [x for x in hrefs if not x.startswith("/zip/")]
+        followed += zips[:1]
+        for href in followed:
+            page(href)
+        slow = max(times, key=times.get)
+        steps["22c"] = time.perf_counter() - tp
+        log(f"[22c] the stores of phases 14, 18, 19a-19c and 20c laid over "
+            f"the server's ({merged}) and ingested into its warehouse "
+            f"({ingested}) in {tm:.2f} s, during the restart; "
+            f"{len(times)} pages, every one 200: {len(explicit)} named "
+            f"({len(names)} campaigns with their live, trend, forensics, "
+            f"witness-diff and profile pages, {len(set(wit))} witness "
+            f"runs, {len(sessions)} verifier sessions, /telemetry/, "
+            f"/live/ and /timeline/{tl_run}) and {len(followed)} links of "
+            f"the index and campaign pages followed one level (/zip/ once: "
+            f"{zipped}); {steps['22c']:.2f} s, the slowest {slow} "
+            f"{times[slow]:.3f} s")
+
+        # ---- the server's end: SIGTERM, its counts ------------------------
+        child.proc.terminate()
+        rc, n, out, _ = child.wait(timeout=60)
+        assert rc == 143, (rc, out[-3000:])
+        for kname in n22:
+            n22[kname] += n[kname]
+        assert n["locf"] > 0 and n["seg_or"] > 0, n
+        log(f"[22] the restarted server ended by SIGTERM (exit {rc}), its "
+            f"launches {n}")
+    finally:
+        for k, v in proxy.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        closed(st["child"])
+        for d in (base, base18, base20):
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[22] launches in phase 22: {n22}")
+    for kname in launches:
+        launches[kname] += n22[kname]
+    t = time.perf_counter() - t22
+    log(f"[22] steps (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       sorted(steps.items()))
+        + f"; {t:.1f} s from the phase's own start, of the "
+        f"{WEB_BUDGET_S:.0f} s budget")
     return t
 
 

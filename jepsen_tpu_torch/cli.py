@@ -17,7 +17,10 @@ A db suite calls::
     if __name__ == "__main__":
         cli.run(cli.single_test_cmd(my_test))
 
-The subcommands are ``test``, ``test-all``, ``analyze``, ``trace DIR
+The subcommands are ``test``, ``test-all``, ``serve`` (the store's web
+pages; with ``--ingest`` also the always-on verifier service that a
+test's ``"live-check": "http://host:port"`` streams to), ``analyze``,
+``trace DIR
 [--top N]`` (a stored run's telemetry), ``tail DIR [-f] [-n N]
 [--since T]`` (its flight recorder; ``--since`` answers from the
 store's warehouse when it covers the run, else from the stream),
@@ -32,11 +35,11 @@ the autopilot that streams generations into it) and ``cache
 warm|ls|stats|clear`` (the kernel build in ``build/jepsen_tpu_torch/``;
 ``warm`` raises `KernelError` where the build fails).  ``--telemetry``
 collects spans and metrics into the run's store dir; ``--profile-dir
-DIR`` also writes a ``torch.profiler`` trace there.  The JAX module's
-``serve`` waits for the port's web pages.  ``--cpu`` puts ``"cpu"`` in the options as
-the checkers' device (``opts["cpu"]``); without it the checkers run on
-the CUDA card
-and, with no card, a test records ``valid? unknown`` naming
+DIR`` also writes a ``torch.profiler`` trace there.  ``--cpu`` puts
+``"cpu"`` in the options as the checkers' device (``opts["cpu"]``, and
+the device of ``serve --ingest``'s sweeps and seals); without it the
+checkers run on the CUDA card and, with no card, a test records
+``valid? unknown`` naming
 `NoDeviceError`, and ``shrink`` and ``campaign run`` exit 1 naming it
 (a campaign's cells are indexed as unknowns naming it).
 ``JT_FORCE_CPU`` is not read.
@@ -182,6 +185,40 @@ def run_test_cmd(test_fn: Callable[[Dict[str, Any]], Dict[str, Any]],
     if failures:
         print(f"{failures} failing run(s)", file=sys.stderr)
     return 1 if failures else 0
+
+
+def serve_cmd(opts: argparse.Namespace) -> int:
+    """`serve` — the store's web pages; with ``--ingest`` also the
+    verifier service (docs/VERIFIER.md), its sweeps and seals on the
+    card, or on the CPU under ``--cpu``, and its maintenance loop."""
+    from . import web
+
+    verifier = None
+    if getattr(opts, "ingest", False):
+        from .verifier import VerifierService
+
+        cfg = {}
+        if getattr(opts, "compact_bytes", None):
+            cfg["compact-bytes"] = int(opts.compact_bytes)
+        if getattr(opts, "gc_idle", None):
+            cfg["gc-idle-s"] = float(opts.gc_idle)
+        if getattr(opts, "archive_sealed", None):
+            cfg["archive-sealed-s"] = float(opts.archive_sealed)
+        verifier = VerifierService(
+            opts.store_dir, default_config=cfg,
+            device="cpu" if getattr(opts, "cpu", False) else None)
+        # the production-service loop: batched multi-tenant sweeps +
+        # GC/retention on a maintenance thread
+        verifier.start_maintenance(
+            float(getattr(opts, "maintain_interval", 5.0) or 5.0))
+    try:
+        web.serve(port=opts.port, base=opts.store_dir,
+                  host=getattr(opts, "host", "127.0.0.1"),
+                  verifier=verifier)
+    finally:
+        if verifier is not None:
+            verifier.close()
+    return 0
 
 
 def campaign_cmd(opts: argparse.Namespace) -> int:
@@ -330,12 +367,15 @@ def fleet_cmd(opts: argparse.Namespace) -> int:
             return 2
         verifier = None
         if getattr(opts, "ingest", False):
-            # the co-hosted verifier's per-host verdict freshness
-            # joins /fleet/status; its ingest routes wait for the
-            # port's web pages (ROADMAP A4)
+            # live verification at fleet scale: the coordinator also
+            # serves the verifier, so workers' cells with "live-check"
+            # opts stream here — no shared filesystem, one
+            # control-plane URL
             from .verifier import VerifierService
 
-            verifier = VerifierService(base)
+            verifier = VerifierService(
+                base, device="cpu" if getattr(opts, "cpu", False)
+                else None)
             verifier.start_maintenance()
         print(f"fleet {coord.name}: {len(coord.specs)} cells, "
               f"{len(coord._done_ids)} already indexed, lease "
@@ -1107,9 +1147,9 @@ def _obs_campaign_cmd(opts: argparse.Namespace, base: str) -> int:
 def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                     checker_fn: Optional[Callable] = None,
                     prog: str = "jepsen-tpu-torch"):
-    """Build the standard CLI: `test`, `analyze`, `trace`, `tail`,
-    `shrink`, `campaign`, `obs`, `fleet` and `cache` subcommands.
-    Returns (parser, dispatch)."""
+    """Build the standard CLI: `test`, `serve`, `analyze`, `trace`,
+    `tail`, `shrink`, `campaign`, `obs`, `fleet` and `cache`
+    subcommands.  Returns (parser, dispatch)."""
     p = base_parser(prog)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -1117,6 +1157,32 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
     add_test_opts(pt)
     if extra_opts:
         extra_opts(pt)
+
+    ps = sub.add_parser("serve", help="serve the store web UI")
+    ps.add_argument("-p", "--port", type=int, default=8080)
+    ps.add_argument("--host", default="127.0.0.1",
+                    help='bind address (use "0.0.0.0" to expose)')
+    ps.add_argument("--ingest", action="store_true",
+                    help="run the always-on verifier service: accept "
+                         "streamed history segments on POST "
+                         "/ingest/<session> and publish rolling "
+                         "verdicts on GET /verdict/<session> "
+                         "(docs/VERIFIER.md); its checks run on the "
+                         "card, on the CPU under --cpu")
+    ps.add_argument("--compact-bytes", type=int, default=None,
+                    help="auto-compact a session's journal once it "
+                         "exceeds this many bytes (checkpoint + "
+                         "truncate; docs/VERIFIER.md)")
+    ps.add_argument("--gc-idle", type=float, default=None,
+                    help="expire open sessions idle for this many "
+                         "seconds (journal stays; a later touch "
+                         "recovers them)")
+    ps.add_argument("--archive-sealed", type=float, default=None,
+                    help="archive sealed sessions idle for this many "
+                         "seconds under <store>/verifier/_archive/")
+    ps.add_argument("--maintain-interval", type=float, default=5.0,
+                    help="seconds between maintenance ticks (batched "
+                         "sweep + gc)")
 
     pa = sub.add_parser("analyze", help="re-check a stored run")
     pa.add_argument("dir", help="store run directory")
@@ -1373,7 +1439,8 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
                      default=argparse.SUPPRESS,
                      help="work/autopilot: run the cells' checkers on "
                           "the CPU instead of the CUDA card (as the "
-                          "top-level --cpu)")
+                          "top-level --cpu); serve --ingest: the "
+                          "verifier's checks")
 
     pcc = sub.add_parser("cache",
                          help="the kernel build in "
@@ -1386,6 +1453,8 @@ def single_test_cmd(test_fn, *, extra_opts: Optional[Callable] = None,
     def dispatch(opts: argparse.Namespace) -> int:
         if opts.cmd == "test":
             return run_test_cmd(test_fn, opts)
+        if opts.cmd == "serve":
+            return serve_cmd(opts)
         if opts.cmd == "analyze":
             return analyze_cmd(opts, checker_fn)
         if opts.cmd == "shrink":

@@ -23,8 +23,7 @@ Telemetry (``"telemetry"`` in the test map, ``telemetry.enable()`` or
 ``JEPSEN_TELEMETRY``) gives the run one span per phase and a flight
 recorder; ``"profile-dir"`` adds a ``torch.profiler`` trace; ``"live-check"``
 streams the history into a verifier session while the workload runs
-(``{"inproc": true}``; a URL target waits for the web server's ingest
-routes).
+(``{"inproc": true}``, or the URL of a ``serve --ingest`` server).
 """
 
 from __future__ import annotations
@@ -162,9 +161,9 @@ def run(test: dict) -> dict:
     if test.get("live-check"):
         from .verifier.client import live_check_config
 
-        # a value the port cannot serve (a URL target, a malformed value)
-        # raises here, before the run starts anything, rather than run
-        # without the checking the test map asked for
+        # a malformed value raises here, before the run starts
+        # anything, rather than run without the checking the test map
+        # asked for
         live_check_config(test)
     if test.get("start-time") is None:
         test["start-time"] = time.time()

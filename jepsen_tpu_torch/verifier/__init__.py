@@ -14,8 +14,8 @@ Layers (see ``docs/VERIFIER.md``):
   :func:`~jepsen_tpu_torch.checkers.elle.oracle.boundary_verdict` tail.
 - :mod:`.journal` — fsync'd per-session journals; accept → fsync → ack;
   byte-cursor resume; crash replay to the identical verdict digest.
-- :mod:`.service` — :class:`VerifierService`, the session manager (in
-  process in the port; the JAX package's web server routes to it);
+- :mod:`.service` — :class:`VerifierService`, the session manager
+  (``web.serve`` routes the ingest endpoints to it, ``serve --ingest``);
   journal compaction, session GC/archival, and the maintenance loop.
 - :mod:`.sweep` — multi-tenant batched dirty-region sweeps: many
   sessions' regions, one ``ops.cycle_sweep.detect_cycles`` dispatch on

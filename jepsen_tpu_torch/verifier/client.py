@@ -12,19 +12,22 @@ and :meth:`finish` closes the loop — rolling verdict, optional seal
 
 Transports:
 
+- ``{"url": "http://host:port"}`` — a remote verifier service
+  (``serve --ingest``, or a fleet coordinator serving one), its checks
+  on that server's device; every request carries the run's
+  ``Jepsen-Trace`` header;
 - ``{"inproc": true}`` — an in-process `VerifierService` over the
   run's own store (no daemon needed; the service's ``verifier.sweep``
   spans then land in the run's telemetry), its seal checks on the
   run's device (the CPU when the test map has ``"cpu"``, else the
-  card);
-- a URL, ``{"url": "http://host:port"}`` — a remote verifier service:
-  the JAX client's HTTP transport waits for the port's server with the
-  ``/ingest`` and ``/verdict`` routes (``web.py``, ROADMAP A4), and
-  :func:`live_check_config` refuses a URL target with `ValueError`.
+  card).
 
 Every service call rides `resilience.device_call` (fault site
 ``verifier.live``) with a seeded `RetryPolicy` + `is_transient_http`,
-so a verifier that answers 5xx is ridden out with bounded backoff.
+so coordinator restarts and partitions are ridden out with bounded
+backoff.  An HTTP error carries the server's own ``error`` text, so a
+device error on the server (a 500 naming `NoDeviceError` or
+`KernelError`) is named in the degraded state's reason.
 
 Graceful degradation is the contract: a verifier partitioned past
 ``budget-s`` (cumulative outage) flips the client to **degraded** —
@@ -41,6 +44,8 @@ import logging
 import os
 import threading
 import time
+import urllib.error
+import urllib.request
 import zlib
 from typing import Any, Dict, Optional
 
@@ -71,6 +76,7 @@ class LiveCheck:
                  budget_s: float = 5.0,
                  flush_ops: int = 256,
                  flush_interval_s: float = 0.25,
+                 timeout_s: float = 3.0,
                  retry: Optional[RetryPolicy] = None,
                  open_config: Optional[Dict[str, Any]] = None):
         self.session = session
@@ -78,6 +84,7 @@ class LiveCheck:
         self.budget_s = float(budget_s)
         self.flush_ops = max(1, int(flush_ops))
         self.flush_interval_s = float(flush_interval_s)
+        self.timeout_s = float(timeout_s)
         self.retry = retry or RetryPolicy(
             max_attempts=4, base_delay_s=0.1, multiplier=2.0,
             max_delay_s=1.0,
@@ -86,8 +93,13 @@ class LiveCheck:
             # jitter — alone in this repo — non-replayable
             seed=zlib.crc32(session.encode()) & 0xFFFF,
             classify=is_transient_http)
-        self._svc = target      # a VerifierService
+        self._url: Optional[str] = None
+        self._svc = None
         self._own_svc = False  # set by live_check_for for in-proc mode
+        if isinstance(target, str):
+            self._url = target.rstrip("/")
+        else:
+            self._svc = target
         # distributed trace: the session rides its run's
         # trace — from the open config's trace-id (fleet cells), else
         # whatever trace core.run installed on this thread.  Captured
@@ -134,6 +146,22 @@ class LiveCheck:
                          self.session, what, e)
             raise
 
+    def _http(self, method: str, path: str, body: bytes = b""
+              ) -> Dict[str, Any]:
+        req = urllib.request.Request(
+            self._url + path, data=body if method == "POST" else None,
+            method=method)
+        if self._trace is not None:
+            req.add_header(spans_mod.TRACE_HEADER, self._trace.header())
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
+                return json.loads(r.read().decode() or "{}")
+        except urllib.error.HTTPError as e:
+            # the same status, its message the server's own error text
+            raise urllib.error.HTTPError(
+                e.url, e.code, f"{e.reason}: {_error_text(e)}", e.headers,
+                None) from None
+
     def _svc_checked(self, code: int, doc: Dict[str, Any]
                      ) -> Dict[str, Any]:
         """In-proc responses mirror HTTP semantics: 5xx raises like a
@@ -147,16 +175,24 @@ class LiveCheck:
 
     def _open(self, config: Optional[Dict[str, Any]]) -> None:
         try:
-            self._call("open", lambda: self._svc_checked(
-                *self._svc.open(self.session, config)))
+            if self._svc is not None:
+                self._call("open", lambda: self._svc_checked(
+                    *self._svc.open(self.session, config)))
+            else:
+                body = json.dumps(config or {}).encode()
+                self._call("open", lambda: self._http(
+                    "POST", f"/verifier/{self.session}/open", body))
             self._opened = True
         except Exception as e:  # noqa: BLE001 — a dead verifier at
             # open time degrades immediately; the run proceeds
             self._degrade(f"open failed: {type(e).__name__}: {e}")
 
     def _ingest(self, body: bytes, cursor: int) -> Dict[str, Any]:
-        return self._call("ingest", lambda: self._svc_checked(
-            *self._svc.ingest(self.session, body, cursor=cursor)))
+        if self._svc is not None:
+            return self._call("ingest", lambda: self._svc_checked(
+                *self._svc.ingest(self.session, body, cursor=cursor)))
+        return self._call("ingest", lambda: self._http(
+            "POST", f"/ingest/{self.session}?cursor={cursor}", body))
 
     # -- the feed path (interpreter dispatch thread) ------------------------
 
@@ -238,12 +274,18 @@ class LiveCheck:
     # -- finish -------------------------------------------------------------
 
     def _verdict(self) -> Dict[str, Any]:
-        return self._call("verdict", lambda: self._svc_checked(
-            *self._svc.verdict(self.session)))
+        if self._svc is not None:
+            return self._call("verdict", lambda: self._svc_checked(
+                *self._svc.verdict(self.session)))
+        return self._call("verdict", lambda: self._http(
+            "GET", f"/verdict/{self.session}"))
 
     def _seal(self) -> Dict[str, Any]:
-        return self._call("seal", lambda: self._svc_checked(
-            *self._svc.seal(self.session)))
+        if self._svc is not None:
+            return self._call("seal", lambda: self._svc_checked(
+                *self._svc.seal(self.session)))
+        return self._call("seal", lambda: self._http(
+            "POST", f"/verifier/{self.session}/seal"))
 
     def finish(self) -> Dict[str, Any]:
         """Drain the stream and close the loop: join the sender (it
@@ -312,12 +354,25 @@ class LiveCheck:
         self._close_own_service()
 
 
+def _error_text(e: urllib.error.HTTPError) -> str:
+    """The ``error`` of a JSON answer, else the answer's text."""
+    try:
+        raw = e.read().decode(errors="replace")
+    except Exception:  # noqa: BLE001 — the status alone still counts
+        return "?"
+    try:
+        doc = json.loads(raw)
+    except ValueError:
+        return raw.strip()
+    return str(doc.get("error")) if isinstance(doc, dict) else raw.strip()
+
+
 def live_check_config(test: dict) -> Optional[Dict[str, Any]]:
     """The run's ``"live-check"`` value as a config dict (None when the
-    key is absent or false): ``true`` means ``{"inproc": true}``.
-    Raises `ValueError` on a malformed value and on a URL target, whose
-    ingest routes wait for the port's web server (ROADMAP A4) —
-    `core.run` calls this before the run starts anything."""
+    key is absent or false): a URL string means ``{"url": ...}``,
+    ``true`` means ``{"inproc": true}``.  Raises `ValueError` on a
+    malformed value — `core.run` calls this before the run starts
+    anything."""
     cfg = test.get("live-check")
     if not cfg:
         return None
@@ -327,27 +382,21 @@ def live_check_config(test: dict) -> Optional[Dict[str, Any]]:
         cfg = {"inproc": True}
     if not isinstance(cfg, dict):
         raise ValueError(f"bad live-check config {cfg!r}")
-    if cfg.get("url"):
-        raise ValueError(
-            f"live-check target {cfg['url']!r}: a URL needs a verifier "
-            "service with the /ingest and /verdict routes, which come "
-            "with the port's web server (ROADMAP A4); use "
-            "{\"inproc\": true}")
     return cfg
 
 
 def live_check_for(test: dict) -> Optional[LiveCheck]:
     """Build the run's `LiveCheck` from its ``"live-check"`` test key:
 
+    - a URL string, or ``{"url": ...}`` — remote service (``serve
+      --ingest``), its checks on that server's device;
     - ``{"inproc": true}`` (or ``true``) — in-process service over the
       run's store, its checks on the CPU when the test map has
       ``"cpu"``, else on the card;
-    - a URL string, or ``{"url": ...}`` — raises `ValueError`: the
-      ingest routes of a remote service wait for the port's web server
-      (ROADMAP A4);
     - knobs: ``session`` (default: the run dir identity), ``seal``,
-      ``budget-s``, ``flush-ops``, ``flush-interval-s``, plus any verifier
-      session config under ``config`` (forwarded to open).
+      ``budget-s``, ``flush-ops``, ``flush-interval-s``, ``timeout-s``,
+      plus any verifier session config under ``config`` (forwarded to
+      open).
     """
     cfg = live_check_config(test)
     if cfg is None:
@@ -358,10 +407,16 @@ def live_check_for(test: dict) -> Optional[LiveCheck]:
         session = store.sanitize(
             f"{test.get('name', 'run')}-{os.path.basename(d)}"
         ).replace(" ", "_")
-    from .service import VerifierService
+    own_svc = False
+    target: Any
+    if cfg.get("url"):
+        target = str(cfg["url"])
+    else:
+        from .service import VerifierService
 
-    target = VerifierService(store._base(test),
-                             device="cpu" if test.get("cpu") else None)
+        target = VerifierService(store._base(test),
+                                 device="cpu" if test.get("cpu") else None)
+        own_svc = True
     open_config = dict(cfg.get("config") or {})
     # trace + host attribution: the session's journal
     # metadata names the run's trace and the executing fleet host, so
@@ -378,6 +433,7 @@ def live_check_for(test: dict) -> Optional[LiveCheck]:
         budget_s=float(cfg.get("budget-s", 5.0)),
         flush_ops=int(cfg.get("flush-ops", 256)),
         flush_interval_s=float(cfg.get("flush-interval-s", 0.25)),
+        timeout_s=float(cfg.get("timeout-s", 3.0)),
         open_config=open_config or None)
-    lc._own_svc = True
+    lc._own_svc = own_svc
     return lc

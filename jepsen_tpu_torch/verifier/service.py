@@ -2,13 +2,15 @@
 `jepsen_tpu/verifier/service.py`).
 
 Session lifecycle, storage, and observability for a fleet of
-:class:`~.session.VerifierSession`\\ s.  In the JAX package ``cli serve
---ingest`` serves it (the web server routes ``POST /ingest/<session>``,
-``GET /verdict/<session>``, and the ``/verifier/<session>/<verb>``
-lifecycle endpoints here); the port has no web server yet, so its
-callers are in process (`client.LiveCheck` with ``{"inproc": true}``).
-The sessions' seal checks and the batched sweep run on the service's
-`device` (the CUDA card unless the caller names the CPU).
+:class:`~.session.VerifierSession`\\ s, served by ``serve --ingest``
+(the web server routes ``POST /ingest/<session>``, ``GET
+/verdict/<session>``, and the ``/verifier/<session>/<verb>`` lifecycle
+endpoints here) or called in process (`client.LiveCheck` with
+``{"inproc": true}``).  The sessions' seal checks and the batched sweep
+run on the service's `device` (the CUDA card unless the caller names
+the CPU); a device error there (`NoDeviceError`, `KernelError`) is
+raised out of `verdict` and `seal`, not answered as a transient 503, so
+the web server answers 500 naming it.
 
 Protocol (all JSON):
 
@@ -54,6 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from jepsen_tpu_torch import backend, resilience, store, telemetry
 from jepsen_tpu_torch.resilience import Deadline, DeadlineExceeded
 from jepsen_tpu_torch.telemetry import spans as spans_mod
+from jepsen_tpu_torch.ops.kernels import KernelError
 from jepsen_tpu_torch.telemetry.stream import EventStream
 
 from .journal import (
@@ -86,6 +89,10 @@ ARCHIVE_DIR = "_archive"
 #: sweep-duration histogram bounds (seconds) — p95 derivable from the
 #: cumulative buckets on /metrics
 _SWEEP_BUCKETS = (0.001, 0.01, 0.1, 1.0, 10.0)
+
+#: the card's own failures: raised to the caller, never answered as a
+#: transient 503 that a client would retry
+_DEVICE_ERRORS = (backend.NoDeviceError, KernelError)
 
 
 def _registry():
@@ -481,6 +488,8 @@ class VerifierService:
         t0 = time.perf_counter()
         try:
             res = live.session.verdict(deadline=live.deadline())
+        except _DEVICE_ERRORS:
+            raise
         except Exception as e:  # noqa: BLE001 — injected persistent
             return 503, {"error": f"{type(e).__name__}: {e}"}
         dt = time.perf_counter() - t0
@@ -523,6 +532,8 @@ class VerifierService:
             return 500, {"error": "verdict mismatch",
                          "incremental": e.incremental,
                          "batch": e.batch}
+        except _DEVICE_ERRORS:
+            raise
         except Exception as e:  # noqa: BLE001
             return 503, {"error": f"{type(e).__name__}: {e}"}
         live.seal_result = sealed
@@ -697,9 +708,8 @@ class VerifierService:
 
     def start_maintenance(self, interval_s: float = 5.0) -> None:
         """Run :meth:`maintain` on a daemon thread every
-        ``interval_s`` — the production-service mode (``cli serve
-        --ingest`` in the JAX package).  :meth:`close` stops and joins
-        it."""
+        ``interval_s`` — the production-service mode ``serve
+        --ingest`` enables.  :meth:`close` stops and joins it."""
         if self._maint is not None:
             return
         self._maint_stop.clear()

@@ -76,8 +76,8 @@ def test_subcommands_and_demo_checkers(tmp_path, capsys):
     p, _ = tcli.test_all_cmd(DEMOS)
     sub = next(a for a in p._actions if a.dest == "cmd")
     assert sorted(sub.choices) == ["analyze", "cache", "campaign", "fleet",
-                                   "obs", "shrink", "tail", "test",
-                                   "test-all", "trace"]
+                                   "obs", "serve", "shrink", "tail",
+                                   "test", "test-all", "trace"]
     rc = tcli.run(tcli.test_all_cmd(DEMOS), ["test-all", "--only", "nope"])
     assert rc == 2 and "nope" in capsys.readouterr().err
     assert tcli.run(tcli.test_all_cmd(DEMOS), ["test"]) == 2

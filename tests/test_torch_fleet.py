@@ -22,7 +22,11 @@ The port's differences, each pinned here: no compile cache (no secret
 minted, no ``compilecache`` advert, ``/fleet/cache`` empty and
 ``/fleet/cache/<name>`` 404 even where the store holds such files); a
 worker's ``cpu=True`` puts ``"cpu"`` into the cell's opts and leaves
-the run id; the verifier's POST routes answer 404 (ROADMAP A4).
+the run id.  The dashboards on the fleet's server (``/``, ``/fleet``,
+``/campaign/<n>/live``) render from the port's coordinator as the
+JAX package's do from its own (the pages byte for byte are in
+`test_torch_web.py`), and the verifier's POST routes are served beside
+the fleet's.
 """
 
 import hashlib
@@ -978,11 +982,16 @@ def test_fleet_status_metrics_and_cache_routes(fleet_run):
     assert 'jepsen_fleet_host_worker_cells_done_total{host="w' in body
     assert json.loads(_get(url, "/fleet/cache")) == {"entries": [],
                                                      "bytes": 0}
-    for path in ("/fleet/cache/x", "/", "/fleet", "/campaigns",
-                 "/run/x", "/timeline/x"):
+    for path in ("/fleet/cache/x", "/run/x", "/timeline/x"):
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(url, path)
         assert e.value.code == 404, path
+    page = _get(url, "/fleet")
+    assert "fleet — fl" in page and "w0" in page and "w1" in page
+    # the index page links the fleet dashboard and the campaigns
+    index = _get(url, "/")
+    assert 'href="/fleet"' in index and 'href="/campaigns"' in index
+    assert ">fl<" in _get(url, "/campaigns")
     for path in ("/ingest/s?cursor=0", "/verifier/s/open"):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(url, path, {})
@@ -994,6 +1003,50 @@ def test_fleet_status_metrics_and_cache_routes(fleet_run):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post_raw(url, "/fleet/claim", b"[1]")
     assert e.value.code == 400
+
+
+def test_fleet_live_page_renders_coordinator_heartbeat(fleet_run):
+    """The coordinator's heartbeat writer produces the live.json shape
+    the single-process scheduler writes: ``/campaign/<n>/live`` renders
+    it unchanged."""
+    base, url, *_ = fleet_run
+    with open(tccore.live_path("fl", base)) as f:
+        doc = json.load(f)
+    assert doc["finished"] is True and doc["done"] == 6
+    page = _get(url, "/campaign/fl/live")
+    assert "finished" in page and "6/6 runs done" in page
+
+
+def test_scheduler_and_fleet_heartbeats_share_one_shape(tmp_path):
+    """Both writers, the scheduler's file-only `Heartbeat` and the
+    coordinator's HTTP-fed one, render on ``/campaign/<n>/live``, and
+    ``/fleet`` names the worker that pushed."""
+    base = str(tmp_path)
+    hb = ttel.Heartbeat(tccore.live_path("filecamp", base),
+                        campaign="filecamp", total=4)
+    hb.worker("campaign-worker-0", {"run": "r-file", "workload": "set",
+                                    "fault": "nofault", "seed": 0,
+                                    "slot": None})
+    coord = tcoord.FleetCoordinator(dict(SPEC, name="fl-hb", seeds=[0]),
+                                    base, lease_s=5.0)
+    srv = tweb.serve(port=0, base=base, background=True, fleet=coord)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        page = _get(url, "/campaign/filecamp/live")
+        assert "r-file" in page and "campaign-worker-0" in page
+        _post(url, "/fleet/register", {"worker": "remote-w",
+                                       "host": "remote-w"})
+        _post(url, "/fleet/heartbeat",
+              {"worker": "remote-w", "state": {
+                  "run": "r-http", "workload": "set",
+                  "fault": "nofault", "seed": 1, "slot": None}})
+        page = _get(url, "/campaign/fl-hb/live")
+        assert "r-http" in page and "remote-w" in page
+        page = _get(url, "/fleet")
+        assert "fleet — fl-hb" in page and "remote-w" in page
+    finally:
+        srv.server_close()
+        coord.close()
 
 
 def test_fleet_finished_campaign_resumes_zero(fleet_run):
@@ -1119,10 +1172,10 @@ def test_status_joins_verifier_freshness(tmp_path):
         row = doc["workers"]["fw1"]
         assert isinstance(row["verdict-freshness-s"], (int, float))
         assert row["live-sessions"] == 1
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(url, "/ingest/livesess?cursor=1", {})
-        assert e.value.code == 404
-        assert "ROADMAP A4" in json.loads(e.value.read())["error"]
+        # the verifier's POST routes are served beside the fleet's: the
+        # resend of an acked byte is an idempotent replay
+        ack = _post_raw(url, "/ingest/livesess?cursor=1", b"{}")
+        assert ack["replayed"] is True and ack["cursor"] > 1
     finally:
         srv.server_close()
         ver.close()

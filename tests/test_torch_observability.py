@@ -10,14 +10,19 @@ the two observations must be equal.  Compile attribution is held to the
 port's rule: `compile_s` books the first call of each (site, shape
 class), `execute_s` every later one, and a transient failure does not
 use up a shape's first sighting.  The metrics federation and staging
-tests (`:137-303`) are in `test_torch_fleet.py`; the tests on the live
-fleet seam (`:524-618`) wait for the port's web pages and verifier
-routes (ROADMAP A4).
+tests (`:137-303`) are in `test_torch_fleet.py`.  The tests on the live
+fleet seam (`:524-618`) run each package's coordinator, verifier and
+`web.serve` in a store of its own (the port's worker and service on the
+CPU): one cell through a real worker stitches one trace whose
+``/timeline/<run>`` page renders, a session adopts the trace of the
+``Jepsen-Trace`` header on ``POST /ingest``, and ``/fleet/status`` and
+the ``/fleet`` page carry the per-host verdict freshness.
 """
 
 import json
 import os
 import types
+import urllib.request
 
 import numpy as np
 import pytest
@@ -26,18 +31,24 @@ torch = pytest.importorskip("torch")
 
 from jepsen_tpu import cli as jcli  # noqa: E402
 from jepsen_tpu import core as jcore  # noqa: E402
+from jepsen_tpu import fleet as jfleet  # noqa: E402
 from jepsen_tpu import resilience as jres  # noqa: E402
 from jepsen_tpu import store as jstore  # noqa: E402
 from jepsen_tpu import telemetry as jtel  # noqa: E402
+from jepsen_tpu import verifier as jver  # noqa: E402
+from jepsen_tpu import web as jweb  # noqa: E402
 from jepsen_tpu.resilience import guard as jguard  # noqa: E402
 from jepsen_tpu.telemetry import export as jexport  # noqa: E402
 from jepsen_tpu.telemetry import spans as jspans  # noqa: E402
 from jepsen_tpu.telemetry import warehouse as jwh  # noqa: E402
 from jepsen_tpu_torch import cli as tcli  # noqa: E402
 from jepsen_tpu_torch import core as tcore  # noqa: E402
+from jepsen_tpu_torch import fleet as tfleet  # noqa: E402
 from jepsen_tpu_torch import resilience as tres  # noqa: E402
 from jepsen_tpu_torch import store as tstore  # noqa: E402
 from jepsen_tpu_torch import telemetry as ttel  # noqa: E402
+from jepsen_tpu_torch import verifier as tver  # noqa: E402
+from jepsen_tpu_torch import web as tweb  # noqa: E402
 from jepsen_tpu_torch.resilience import guard as tguard  # noqa: E402
 from jepsen_tpu_torch.telemetry import export as texport  # noqa: E402
 from jepsen_tpu_torch.telemetry import spans as tspans  # noqa: E402
@@ -46,10 +57,12 @@ from jepsen_tpu_torch.telemetry import warehouse as twh  # noqa: E402
 PKGS = {
     "jax": types.SimpleNamespace(
         cli=jcli, core=jcore, res=jres, store=jstore, tel=jtel,
-        guard=jguard, export=jexport, spans=jspans, wmod=jwh),
+        guard=jguard, export=jexport, spans=jspans, wmod=jwh,
+        fleet=jfleet, verifier=jver, web=jweb),
     "torch": types.SimpleNamespace(
         cli=tcli, core=tcore, res=tres, store=tstore, tel=ttel,
-        guard=tguard, export=texport, spans=tspans, wmod=twh),
+        guard=tguard, export=texport, spans=tspans, wmod=twh,
+        fleet=tfleet, verifier=tver, web=tweb),
 }
 
 
@@ -436,3 +449,116 @@ def test_port_run_stitches_with_device_times(tmp_path):
     tl, _, prof = got["torch"]
     assert tl["trace-id"] == tspans.trace_id_for("cell-5") and tl["spans"]
     assert prof and all(c + e > 0 for *_, c, e in prof)
+
+
+# --------------------------------- the trace across a live fleet seam
+
+def _fleet_server(P, base):
+    """`P`'s coordinator and verifier on its own `web.serve` (the
+    port's service on the CPU); returns (coord, ver, srv, url)."""
+    spec = {"name": "obsfl", "workloads": ["set"], "seeds": [0],
+            "opts": {"time-limit": 0.1, "telemetry": True}}
+    coord = P.fleet.FleetCoordinator(spec, str(base), lease_s=10.0)
+    ver = P.verifier.VerifierService(
+        str(base), **({"device": "cpu"} if P is PKGS["torch"] else {}))
+    srv = P.web.serve(port=0, base=str(base), background=True,
+                      fleet=coord, verifier=ver)
+    return coord, ver, srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _with_fleet_server(P, base, body):
+    coord, ver, srv, url = _fleet_server(P, base)
+    try:
+        return body(coord, ver, url)
+    finally:
+        srv.server_close()
+        ver.close()
+        coord.close()
+
+
+def test_fleet_worker_end_to_end_single_trace(tmp_path):
+    """One cell through a real coordinator and worker over HTTP: the
+    record, the run dir's telemetry and the fleet segments carry one
+    trace, with zero orphans, and ``/timeline/<run>`` renders it."""
+    def scenario(P, base):
+        def body(coord, _ver, url):
+            kw = {"cpu": True} if P is PKGS["torch"] else {}
+            w = P.fleet.FleetWorker(url, str(base), name="obs-w0",
+                                    poll_s=0.05, **kw)
+            assert w.run() == 1
+            run_id = next(iter(coord._done_ids))
+            want = P.spans.trace_id_for(run_id)
+            rec = coord.idx.latest_by_run()[run_id]
+            assert rec["trace"] == want
+            wh = P.wmod.open_or_create(str(base))
+            wh.ingest_store(str(base))
+            tl = wh.trace_timeline(run_id)
+            assert tl["trace-id"] == want and not tl["orphans"]
+            names = {s["name"] for s in tl["spans"]}
+            assert {s["trace_id"] for s in tl["spans"]} == {want}
+            hosts = {s["host"] for s in tl["spans"] if s["source"] == "run"}
+            with urllib.request.urlopen(f"{url}/timeline/{run_id}") as r:
+                page = r.read().decode()
+            assert want in page and "fleet:execute" in page
+            return (run_id, want, sorted(k for k in rec["spans"]
+                                         if k.startswith("fleet:")),
+                    sorted(names), sorted(hosts))
+
+        return _with_fleet_server(P, base, body)
+
+    run_id, _want, fleet_spans, names, hosts = both(tmp_path, scenario)
+    assert {"fleet:claim-to-start", "fleet:enqueue-wait"} <= \
+        set(fleet_spans)
+    assert {"fleet:enqueue-wait", "fleet:claim-to-start", "fleet:execute",
+            "run:workload"} <= set(names)
+    assert hosts == ["obs-w0"]
+
+
+def test_verifier_adopts_trace_from_header(tmp_path):
+    def scenario(P, base):
+        def body(_coord, ver, url):
+            ctx = P.spans.mint_trace("cell-x")
+            req = urllib.request.Request(
+                f"{url}/ingest/hsess?cursor=0",
+                data=b'{"type": "invoke", "process": 0, "f": "txn", '
+                     b'"value": []}\n',
+                headers={P.spans.TRACE_HEADER: ctx.header()},
+                method="POST")
+            with urllib.request.urlopen(req) as r:
+                ack = json.loads(r.read().decode())
+            assert ack["ops"] == 1
+            sessions = {s["session"]: s for s in ver.sessions()}
+            assert sessions["hsess"]["config"]["trace-id"] == ctx.trace_id
+            with open(os.path.join(str(base), "verifier", "hsess",
+                                   "session.json")) as f:
+                on_disk = json.load(f)["config"]["trace-id"]
+            assert on_disk == ctx.trace_id
+            return ack, ctx.trace_id
+
+        return _with_fleet_server(P, base, body)
+
+    both(tmp_path, scenario)
+
+
+def test_fleet_status_surfaces_verdict_freshness_per_host(tmp_path):
+    def scenario(P, base):
+        def body(coord, ver, url):
+            coord.register({"worker": "fw1", "host": "fw1"})
+            assert ver.open("livesess", {"host": "fw1"})[0] == 200
+            assert ver.ingest(
+                "livesess", b'{"type": "invoke", "process": 0, '
+                b'"f": "txn", "value": []}\n')[0] == 200
+            with urllib.request.urlopen(url + "/fleet/status") as r:
+                doc = json.loads(r.read().decode())
+            assert "fw1" in doc["verifier-freshness"]
+            row = doc["workers"]["fw1"]
+            assert isinstance(row["verdict-freshness-s"], (int, float))
+            assert row["live-sessions"] == 1
+            with urllib.request.urlopen(url + "/fleet") as r:
+                page = r.read().decode()
+            assert "verdict freshness" in page and "fw1" in page
+            return sorted(doc["verifier-freshness"]), row["live-sessions"]
+
+        return _with_fleet_server(P, base, body)
+
+    both(tmp_path, scenario)

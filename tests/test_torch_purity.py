@@ -10,7 +10,9 @@ CLI and `repl.recheck`, all on the CPU) in a fresh
 interpreter must load neither `jax` nor `jepsen_tpu`; nor may the fleet
 (a coordinator on the port's `web.serve`, a `FleetWorker(cpu=True)`
 running and uploading one append cell, an `Autopilot` closing one
-generation, `fleet status` and `cache ls`).  The walk imports
+generation, `fleet status` and `cache ls`); nor may a ``python -m
+jepsen_tpu_torch --cpu serve --ingest`` child that ingests, sweeps,
+seals and serves its pages (read off ``-X importtime``).  The walk imports
 every module, the telemetry and verifier packages included.  A file of its own, so that the test run
 spreads its child process over its own worker.
 """
@@ -240,3 +242,68 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "loaded: []" in res.stdout
+
+
+def test_serve_ingest_imports_neither_jax_nor_jepsen_tpu(tmp_path):
+    import json
+    import socket
+    import time
+    import urllib.request
+
+    from jepsen_tpu_torch.workloads import synth
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env.update(NO_PROXY="127.0.0.1,localhost", no_proxy="127.0.0.1,localhost")
+    err = tmp_path / "importtime.txt"
+    url = f"http://127.0.0.1:{port}"
+    with open(err, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "jepsen_tpu_torch",
+             "--cpu", "--store-dir", str(tmp_path / "s"), "serve",
+             "--ingest", "-p", str(port)],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=f)
+    try:
+        t0 = time.monotonic()
+        while True:
+            assert proc.poll() is None, err.read_text()[-2000:]
+            try:
+                urllib.request.urlopen(url + "/verifier", timeout=2)
+                break
+            except OSError:
+                assert time.monotonic() - t0 < 120, "serve never came up"
+                time.sleep(0.2)
+        h = synth.la_history(n_txns=60, n_keys=3, seed=4)
+        assert synth.inject_wr_cycle(h)
+        body = b"".join(json.dumps(op.to_dict()).encode() + b"\n"
+                        for op in h)
+
+        def call(path, data=None):
+            req = urllib.request.Request(url + path, data=data,
+                                         method="POST" if data is not None
+                                         else "GET")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.read()
+
+        assert json.loads(call("/ingest/p?cursor=0", body))["cursor"] == \
+            len(body)
+        assert json.loads(call("/verdict/p"))["valid?"] is False
+        assert json.loads(call("/verifier/p/seal", b""))["equal"] is True
+        for path in ("/", "/verifier", "/verifier/p", "/live/verifier/p",
+                     "/campaigns", "/alerts", "/metrics"):
+            call(path)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    names = {ln.rsplit("|", 1)[-1].strip()
+             for ln in err.read_text().splitlines()
+             if ln.startswith("import time:")}
+    assert {"jepsen_tpu_torch.web", "jepsen_tpu_torch.verifier.service",
+            "jepsen_tpu_torch.checkers.elle.list_append"} <= names
+    bad = sorted(m for m in names
+                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+    assert not bad, bad

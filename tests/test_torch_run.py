@@ -332,13 +332,39 @@ def test_teardown_runs_when_the_workload_crashes(tmp_path, where):
 
 
 def test_live_check_raises(tmp_path):
-    # a URL target needs the web server's /ingest and /verdict routes
-    # (ROADMAP A4); the port refuses it before anything runs
-    for target in ("http://127.0.0.1:1", {"url": "http://127.0.0.1:1"}):
-        with pytest.raises(ValueError, match="ROADMAP A4"):
-            tcore.run({"name": "live", "store-dir": str(tmp_path),
-                       "live-check": target})
+    # a malformed value raises before anything runs; a URL target
+    # streams to the verifier routes of a served port, its seal on the
+    # server's device (here the CPU), equal to the run's stored check
+    with pytest.raises(ValueError, match="bad live-check"):
+        tcore.run({"name": "live", "store-dir": str(tmp_path),
+                   "live-check": 3})
     assert not os.path.exists(os.path.join(str(tmp_path), "live"))
+    from jepsen_tpu_torch import web
+    from jepsen_tpu_torch.verifier import VerifierService
+
+    sbase = str(tmp_path / "served")
+    svc = VerifierService(sbase, device="cpu")
+    srv = web.serve(port=0, base=sbase, background=True, verifier=svc)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        for i, target in enumerate((url, {"url": url, "budget-s": 30})):
+            t = _test_map(PORT, "append", str(tmp_path / f"run{i}"),
+                          concurrency=3)
+            t.update({"live-check": target, "cpu": True})
+            done = tcore.run(t)
+            res = done["results"]
+            live = res["live-check"]
+            assert live["state"] == "ok", live
+            assert live["ops"] == len(done["history"])
+            assert live["valid?"] == res["valid?"] is True
+            assert live["seal"] == {"equal": True,
+                                    "digest": live["digest"]}
+            # the session lives in the served store, not the run's
+            assert os.path.isdir(os.path.join(sbase, "verifier",
+                                              live["session"]))
+    finally:
+        srv.server_close()
+        svc.close()
 
 
 def test_live_check_true_seals_equal_to_the_stored_check(tmp_path):

@@ -608,10 +608,40 @@ def test_live_check_partition_degrades_within_budget(tmp_path):
 
 
 def test_live_check_for_refuses_a_url(tmp_path):
-    for target in ("http://127.0.0.1:1", {"url": "http://127.0.0.1:1"}):
-        with pytest.raises(ValueError, match="ROADMAP A4"):
-            tv.live_check_for({"name": "x", "store-dir": str(tmp_path),
-                               "live-check": target})
+    # a URL target, as a string or {"url": ...}, streams to a served
+    # port: the session journaled and sealed in the served store
+    from jepsen_tpu_torch import web
+
+    sbase = str(tmp_path / "served")
+    svc = tv.VerifierService(sbase, device="cpu")
+    srv = web.serve(port=0, base=sbase, background=True, verifier=svc)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    h = _history(7, inject="inject_wr_cycle")
+    try:
+        for target in (url, {"url": url, "timeout-s": 5,
+                             "session": "u1"}):
+            lc = tv.live_check_for({"name": "x", "store-dir": str(tmp_path),
+                                    "live-check": target})
+            assert lc._url == url and lc._svc is None and not lc.degraded
+            for d in _ops(h):
+                lc.feed(d)
+            out = lc.finish()
+            assert out["state"] == "ok", out
+            assert out["valid?"] is False and "G1c" in out["anomaly-types"]
+            assert out["seal"] == {"equal": True, "digest": out["digest"]}
+            meta = dict(tv.scan_sessions(sbase))[out["session"]]
+            assert meta["state"] == "sealed"
+    finally:
+        srv.server_close()
+        svc.close()
+    # a URL that nothing serves degrades at open; the run would proceed
+    lc = tv.live_check_for({"name": "x", "store-dir": str(tmp_path),
+                            "live-check": {"url": "http://127.0.0.1:9",
+                                           "timeout-s": 0.5,
+                                           "budget-s": 0.5}})
+    assert lc.degraded and "open failed" in lc.last_error
+    out = lc.finish()
+    assert out["state"] == "degraded" and out["reason"]
     with pytest.raises(ValueError, match="bad live-check"):
         tv.live_check_for({"live-check": 3})
     assert tv.live_check_for({"live-check": None}) is None
