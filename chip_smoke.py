@@ -479,19 +479,51 @@ Phases, each asserting; any failure exits non-zero:
         the index and campaign pages one level deep, ``/zip/`` once:
         every response 200; the page count and the slowest page; the
         server ends by SIGTERM and writes its launch counts.
+ 23. the mesh branch on one card (`parallel.mesh`, `op_shard`, `hybrid`,
+     `batch.check_batch(mesh=)`, `slots.default_mesh`), right after
+     phase 12, on meshes whose shards are all this card (a mesh of n
+     `cuda:0` shards runs every window, gather and combined flag of the
+     sharded path; only the copies between cards wait for more cards):
+     a. phase 4's padded stale-1M history (64 stale reads) through
+        `op_shard.check_sharded` on 2, 3 and 4 shards (3: `max_k` 129,
+        windows of 43 columns): each row's bits and dict (its
+        ``"inference-sharded"`` False) equal to phase 4's
+        `core_check_exact` on one device, each call timed;
+     b. 12c's four 65,536-txn histories through `check_batch(mesh=)` on
+        4 shards, the same with a batch of 5 (the first history again),
+        and `hybrid.check_batch_hybrid` on a (2, 2) mesh, once at `max_k`
+        2 so that the stale history takes the exact single-device rerun:
+        every row equal to 12c's `check_batch` without a mesh and (after
+        the phases) to 12c's CPU twin; then seg-OR at the windows'
+        widths (32, 43, 64 and 128 columns of 2^21 rows) against its
+        plain version, with its time;
+     c. `slots.default_mesh` under `set_forced_shards(4)` with one card
+        visible: None, the single-device path;
+     d. the callers of the default mesh on the card: `slots.all_devices`
+        widened to 4 shards of this card under `set_forced_shards(4)`,
+        so that `default_mesh` resolves a mesh of 4 for each of
+        `core_check_exact` and `core_check_auto` on 23a's history (bits
+        equal to phase 4's), `list_append.check` of a
+        `la_history(20,000 txns)` with one G1c (`inject_wr_cycle`; its
+        dict equal to the single-device check's) and the bank reduction
+        (`bank._reduce_device`) of 2^20 x 8 balances in 4 blocks (equal
+        to `_reduce_host`), each timed.
 The launch counters are set to 0 just before the checks of phase 3, just
 before `core_check_exact` in phase 4, just before each `check` of phase
 6a and 6b, each counted call of phase 7, each check on the card of phase
 9, each counted check of phase 11, the first `check_batch_checkpointed`
 call of phase 12, each `check_stored` of 13a-13c, each `cli.run` of
 14a-14d, 15a-15b and 16b-16c, each full-size check of 16a and each
-`core.run` of 17a-17c, 18a's `core.run` and 18b's seal, each child of
+`core.run` of 17a-17c, 18a's `core.run` and 18b's seal, 23a's first
+call (read after 23b's last), 23d's first check on the mesh (read after
+its last), each child of
 phase 19 and its in-process analyses and re-checks, 20c's campaign and
 20d's re-check and Knossos CLI calls, each child of 21a and 21b's
 autopilot loop (its in-process shrink; the workers it spawns are not
 counted), 22a's `core.run`, 22b's batch check and the restarted 22b
 server (the one killed with ``kill -9`` takes its counts with it), and
-read just after each (phase 12: after the resumed call); the kernels' `launches` are their sum (phases 8 and 10
+read just after each (phase 12: after the resumed call); the kernels' `launches` are their sum, and phase 23's
+apart as `mesh_launches` too (phases 8 and 10
 assert that they launch neither).  The command's total time,
 the card's name and power limit, and a JSON object with one entry per
 kernel come before the last line, `{"ok": true, "device": {...}}`.
@@ -1708,7 +1740,7 @@ def main(argv=None) -> int:
 
 
 def phases(opts) -> list[str]:
-    """Phases 0-22 (see the module docstring); returns the lines to print
+    """Phases 0-23 (see the module docstring); returns the lines to print
     last."""
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.checkers.elle import device_core, device_infer
@@ -1990,6 +2022,9 @@ def phases(opts) -> list[str]:
         f"{torch.cuda.max_memory_allocated()} B")
     log(f"[4] launches on the main path, phases 3-4: {launches}")
     assert launches["locf"] > 0 and launches["seg_or"] > 0, launches
+    # phase 23 checks the same padded history over meshes of this card
+    SHARED["4"] = {"h": device_infer.to_device(hs, torch.device("cpu")),
+                   "bits": b, "over": int(over), "n_keys": p.n_keys}
     del h, hs
     torch.cuda.empty_cache()
 
@@ -2036,6 +2071,10 @@ def phases(opts) -> list[str]:
 
     # ---- 12. batched checking (BASELINE config 5) on the card -------------
     check_config5(dev, launches, twins)
+
+    # ---- 23. the mesh branch on one card -----------------------------------
+    t23 = check_mesh(dev, launches)
+    log(f"[23] phase 23 took {t23:.1f} s")
 
     # phase 19's campaigns, in child processes beside phases 13-15, which
     # check what they make whatever the host's load (16-17 run real
@@ -2093,12 +2132,12 @@ def phases(opts) -> list[str]:
              source="jepsen_tpu_torch/csrc/locf.cu",
              replaces="jepsen_tpu/ops/pallas_fill.py:105",
              launches=launches["locf"], max_abs_err=errs["locf"],
-             **locf_t),
+             mesh_launches=SHARED["23"]["locf"], **locf_t),
         dict(name="seg_or", route="cuda",
              source="jepsen_tpu_torch/csrc/seg_or.cu",
              replaces="jepsen_tpu/ops/pallas_scan.py:76",
              launches=launches["seg_or"], max_abs_err=errs["seg_or"],
-             **seg_t),
+             mesh_launches=SHARED["23"]["seg_or"], **seg_t),
     ]}
     log(f"[end] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     return [smi, json.dumps(kernels_line), json.dumps({"ok": True, "device": {
@@ -3165,15 +3204,201 @@ def check_config5(dev: torch.device, launches: dict, twins: Twins) -> None:
     twins.submit("12c", batch_cpu, small)
     (got, t_card) = wall_s(lambda: batch.check_batch(small, device=dev))
     assert [r["valid?"] for r in got] == [True, True, False, False], got
+    # phase 23b checks the same batch over meshes of this card
+    SHARED["12c"] = {"ps": small, "got": got, "sharded": {}}
 
     def compare_12c(want, t_cpu, got=got, t_card=t_card):
         assert got == want, (got, want)
         log(f"[12c] check_batch of 4 x {N_C5_CMP} txns (verdicts "
             f"{[r['valid?'] for r in got]}): card == CPU; card "
             f"{t_card:.4f} s, CPU {t_cpu:.4f} s in a worker")
+        for what, (rows, idx) in SHARED["12c"]["sharded"].items():
+            assert rows == [want[i] for i in idx], what
+            log(f"[23b] {what}: == the CPU twin of 12c")
 
     twins.later("12c", compare_12c)
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+
+
+def check_mesh(dev: torch.device, launches: dict) -> float:
+    """Phase 23: the mesh branch on one card (see the module docstring),
+    on meshes whose shards are all this card.  The counters are set to 0
+    just before 23a's first call and read after 23b's last; the sums go
+    into the main path's `launches` and, apart, into the kernels line's
+    `mesh_launches`.  Returns the phase's wall time."""
+    from jepsen_tpu_torch.checkers.elle import device_core, device_infer
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.parallel import batch, hybrid, op_shard, slots
+    from jepsen_tpu_torch.parallel.mesh import Mesh
+
+    t23 = time.perf_counter()
+    ref = SHARED.pop("4")
+    h = device_infer.to_device(ref["h"], dev)
+    want_bits = ref["bits"]
+    # the dict `check_sharded` gives phase 4's bits: a converged check
+    b0 = torch.tensor([want_bits], dtype=torch.int32)
+    want_row = dict(batch.summarize_batch_bits(
+        b0, torch.tensor([ref["over"]]), None, ref["n_keys"], 1)[0],
+        **{"inference-sharded": False})
+    fill.LAUNCHES = 0
+    scan.LAUNCHES = 0
+    for n in (2, 3, 4):
+        mesh = Mesh([dev] * n, ("dp",))
+        r, t = wall_s(lambda: op_shard.check_sharded(h, mesh=mesh))
+        bits = [r["counts"][c] for c in device_core.COUNT_NAMES] + \
+            [int(v) for v in r["cycles"].values()] + [int(r["exact"])]
+        assert bits == want_bits, (n, bits, want_bits)
+        assert r == want_row, (n, r, want_row)
+        k = 128 if 128 % n == 0 else (128 // n + 1) * n
+        log(f"[23a] stale-1M through check_sharded on {n} shards of "
+            f"{dev} (max_k {k}, windows of {k // n} columns): bits "
+            f"{bits} == phase 4's core_check_exact, dict equal; "
+            f"{t:.4f} s")
+    n23a = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    del h
+    torch.cuda.empty_cache()
+
+    c5 = SHARED["12c"]
+    small, got = c5["ps"], c5["got"]
+    mesh4 = Mesh([dev] * 4, ("dp",))
+    mesh22 = hybrid.make_hybrid_mesh(2, 2, [dev] * 4)
+    split = Split((("rerun", batch, "core_check_exact"),))
+    runs = (
+        ("check_batch over 4 shards", list(range(4)),
+         lambda ps: batch.check_batch(ps, mesh=mesh4)),
+        ("check_batch of 5 over 4 shards", [0, 1, 2, 3, 0],
+         lambda ps: batch.check_batch(ps, mesh=mesh4)),
+        ("check_batch_hybrid (2, 2)", list(range(4)),
+         lambda ps: hybrid.check_batch_hybrid(ps, mesh22)),
+        ("check_batch_hybrid (2, 2) at max_k 2", list(range(4)),
+         lambda ps: hybrid.check_batch_hybrid(ps, mesh22, max_k=2)),
+    )
+    for what, idx, run in runs:
+        with split:
+            rows, t = wall_s(lambda: run([small[i] for i in idx]))
+        assert rows == [got[i] for i in idx], (what, rows)
+        c5["sharded"][what] = (rows, idx)
+        log(f"[23b] {what} of {len(idx)} x {N_C5_CMP} txns: == 12c's "
+            f"check_batch without a mesh; {t:.4f} s, exact reruns "
+            f"{split.calls['rerun']}")
+    # at max_k 2 the stale history overflows its budget and is re-run
+    # alone through the exact single-device path
+    assert split.calls["rerun"] > 0, split.calls
+    n23 = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    for kname in launches:
+        launches[kname] += n23[kname]
+    assert n23a["locf"] == 3 * LOCF_PER_CHECK and n23a["seg_or"] > 0, n23a
+    SHARED["23"] = n23
+    log(f"[23] launches in phase 23: {n23} (23a {n23a})")
+    # the seg-OR kernel at each window's width, as a shard's exclusive
+    # chain pass runs it at 1M txns (after the counts: comparisons with
+    # the plain version are not the main path's launches)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    widths = {}
+    for k in (32, 43, 64, 128):
+        v = (torch.rand(1 << 21, k, device=dev, generator=gen) < 0.05) \
+            .to(torch.int8)
+        st = torch.rand(1 << 21, device=dev, generator=gen) < 0.01
+        assert torch.equal(scan.seg_or_cuda(v, st, exclusive=True),
+                           scan.seg_or_plain(v, st, exclusive=True)), k
+        widths[k] = cuda_ms(lambda: scan.seg_or_cuda(v, st, exclusive=True))
+    del v, st
+    log("[23b] seg_or exclusive on (2^21, k) planes, equal to the plain "
+        "version: " + ", ".join(f"k={k} {t:.4f} ms"
+                                for k, t in widths.items()))
+
+    # ---- 23c. the default mesh on one card ---------------------------------
+    slots.set_forced_shards(4)
+    try:
+        m = slots.default_mesh(None)
+        m_big = slots.default_mesh(1 << 24, device=dev)
+    finally:
+        slots.set_forced_shards(None)
+    assert m is None and m_big is None, (m, m_big)
+    log(f"[23c] default_mesh under set_forced_shards(4) with "
+        f"{torch.cuda.device_count()} visible card(s): {m} (the "
+        f"single-device path)")
+    n23d = check_default_mesh_callers(dev, ref)
+    for kname in launches:
+        launches[kname] += n23d[kname]
+        n23[kname] += n23d[kname]
+    log(f"[23] launches in phase 23 with 23d: {n23}")
+    return time.perf_counter() - t23
+
+
+def check_default_mesh_callers(dev: torch.device, ref: dict) -> dict:
+    """Phase 23d: the callers of `slots.default_mesh` on a mesh of this
+    card.  One card shows one device, so `slots.all_devices` is widened
+    to 4 shards of it and `set_forced_shards(4)` set; each check is held
+    against its single-device result, and the meshes that
+    `default_mesh` resolved are recorded to show that each check took
+    one.  The counters are set to 0 just before the first check on the
+    mesh and read just after the last; returns them."""
+    from jepsen_tpu_torch.checkers.elle import (
+        device_core,
+        device_infer,
+        list_append,
+    )
+    from jepsen_tpu_torch.checkers.invariants import bank
+    from jepsen_tpu_torch.ops import fill, scan
+    from jepsen_tpu_torch.parallel import slots
+    from jepsen_tpu_torch.workloads import synth
+
+    g1c = synth.la_history(n_txns=LIVE_TXNS, n_keys=LIVE_TXNS // 8,
+                           concurrency=10, seed=23)
+    assert synth.inject_wr_cycle(g1c)
+    alone, t_alone = wall_s(lambda: list_append.check(
+        g1c, LIVE_MODELS, device=dev))
+    assert alone["valid?"] is False and "G1c" in alone["anomaly-types"]
+    rng = np.random.default_rng(23)
+    balances = rng.integers(-2, 30, size=(1 << 20, 8), dtype=np.int64)
+    want_red = bank._reduce_host(balances, 100, False)
+    h = device_infer.to_device(ref["h"], dev)
+
+    real_all, real_mesh = slots.all_devices, slots.default_mesh
+    seen = []
+
+    def recording(n_txns=None, device=None):
+        m = real_mesh(n_txns, device=device)
+        seen.append(None if m is None else m.devices.size)
+        return m
+
+    slots.all_devices = lambda device: [dev] * 4
+    slots.default_mesh = recording
+    slots.set_forced_shards(4)
+    try:
+        fill.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        (b, over), t_exact = wall_s(lambda: device_core.core_check_exact(
+            h, ref["n_keys"], device=dev))
+        assert b.cpu().tolist() == ref["bits"] and int(over) == 0, b
+        (b, over), t_auto = wall_s(lambda: device_core.core_check_auto(
+            h, ref["n_keys"], device=dev))
+        assert b.cpu().tolist() == ref["bits"] and int(over) == 0, b
+        got, t_la = wall_s(lambda: list_append.check(
+            g1c, LIVE_MODELS, device=dev))
+        assert got == alone, (got, alone)
+        red, t_red = wall_s(lambda: bank._reduce_device(
+            balances, 100, False, dev))
+        assert all(np.array_equal(x, y) for x, y in zip(red, want_red))
+        n = {"locf": fill.LAUNCHES, "seg_or": scan.LAUNCHES}
+    finally:
+        slots.set_forced_shards(None)
+        slots.all_devices, slots.default_mesh = real_all, real_mesh
+    assert seen == [4] * 4, seen
+    assert n["locf"] > 0 and n["seg_or"] > 0, n
+    del h
+    torch.cuda.empty_cache()
+    log(f"[23d] slots.all_devices widened to 4 shards of {dev} under "
+        f"set_forced_shards(4): default_mesh gave a mesh of {seen} shards "
+        f"to core_check_exact and core_check_auto on stale-1M (bits == "
+        f"phase 4's; {t_exact:.4f} s, {t_auto:.4f} s), list_append.check "
+        f"of la_history({LIVE_TXNS} txns) with one G1c (== its "
+        f"single-device dict, {alone['anomaly-types']}; {t_la:.4f} s, "
+        f"alone {t_alone:.4f} s) and the bank reduction of 2^20 x 8 "
+        f"balances in 4 blocks (== the host's; {t_red:.4f} s); launches "
+        f"{n}")
+    return n
 
 
 def check_stream(dev: torch.device, launches: dict, twins: Twins) -> None:

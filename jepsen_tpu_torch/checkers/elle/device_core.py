@@ -16,8 +16,11 @@ incompatible-order, G1a, G1b, dirty-update, internal,
 cycle-proj0..cycle-proj4, converged]
 
 Inference and sweep are separate eager stages here, so the JAX package's
-fused/staged split has no counterpart: `core_check_auto` and
-`core_check_staged` are names for `core_check`.
+fused/staged split has no counterpart: `core_check_staged` is a name for
+`core_check`.  `core_check_auto` and `core_check_exact` take the mesh
+that `parallel.slots.default_mesh` resolves, as in the JAX package: the
+sweep's backward-edge axis is then split over the mesh's shards
+(`parallel.op_shard`), with the same bits.
 """
 
 from __future__ import annotations
@@ -69,9 +72,12 @@ def chain_include_stack(projections=PROJECTIONS) -> torch.Tensor:
         for p in projections], dtype=torch.int32)
 
 
-def _verdict(out, max_k: int, max_rounds: int
+def _verdict(out, max_k: int, max_rounds: int, devices=None, place=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sweep half of the core check: infer output -> (bits, overflowed)."""
+    """Sweep half of the core check: infer output -> (bits, overflowed).
+    `devices` splits each projection's sweep over the shards of a mesh
+    axis (`projection_scan`; the JAX package's `projection_sweep_bits`),
+    `place` copying the inferred tensors to them."""
     T = out["ranks"]["txn"].shape[0]
     edges = out["edges"]
     dev = out["ranks"]["txn"].device
@@ -85,7 +91,8 @@ def _verdict(out, max_k: int, max_rounds: int
         [edges[k][2] for k in EDGE_FAMILIES],
         proj_include_stack(PROJECTIONS).tolist(),
         torch.cat([pc_nodes, bc_nodes]), torch.cat([pc_starts, bc_starts]),
-        [pc_mask, bc_mask], chain_include_stack(PROJECTIONS).tolist())
+        [pc_mask, bc_mask], chain_include_stack(PROJECTIONS).tolist(),
+        devices=devices, place=place)
     counts = torch.stack([out["counts"][n].to(torch.int32)
                           for n in COUNT_NAMES])
     tail = torch.tensor(cyc_bits + [int(conv_all)], dtype=torch.int32,
@@ -107,8 +114,39 @@ def core_check(h: PaddedLA, n_keys: int, max_k: int = 128,
     return _verdict(infer(h, n_keys), max_k, max_rounds)
 
 
-core_check_auto = core_check
 core_check_staged = core_check
+
+
+def _sharded_dispatch(h: PaddedLA, n_keys: int, max_k: int,
+                      max_rounds: int, mesh):
+    """The sharded-by-default core: `parallel.op_shard`'s check over the
+    1-D ("batch",) `mesh`, the budget rounded up to a multiple of its
+    size; the bits are `core_check`'s."""
+    from jepsen_tpu_torch.ops.cycle_sweep import shard_budget
+    from jepsen_tpu_torch.parallel.op_shard import _core_check_sharded
+
+    return _core_check_sharded(
+        h, n_keys, mesh, "batch",
+        max_k=shard_budget(max_k, mesh.shape["batch"]),
+        max_rounds=max_rounds)
+
+
+def core_check_auto(h: PaddedLA, n_keys: int, max_k: int = 128,
+                    max_rounds: int = 64, device: backend.DeviceLike = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`core_check`, or its sharded form when `parallel.slots.
+    default_mesh` resolves a mesh for this history on `device`'s kind of
+    device (more than one visible device and a large enough history, or
+    a forced shard count): the one boundary the large-shape callers
+    share, as in the JAX package."""
+    from jepsen_tpu_torch.parallel import slots
+
+    dev = backend.resolve(device)
+    mesh = slots.default_mesh(h.txn_type.shape[0], device=dev)
+    if mesh is not None:
+        return _sharded_dispatch(h, n_keys, max_k, max_rounds, mesh)
+    return core_check(h, n_keys, max_k=max_k, max_rounds=max_rounds,
+                      device=dev)
 
 
 def grow_until_exact(run: Callable[[int, int], tuple], max_k: int = 128,
@@ -159,7 +197,18 @@ def core_check_exact(h: PaddedLA, n_keys: int, max_k: int = 128,
     `grow_until_exact`).  Inference does not depend on the budget, so it
     runs once and only the sweep is retried; each try runs under the
     site ``elle.core-check``, the JAX package's site for its fused check,
-    so a fault plan fires at the same call in both packages."""
-    out = infer(to_device(h, backend.resolve(device)), n_keys)
+    so a fault plan fires at the same call in both packages.  Takes the
+    sharded path when `parallel.slots.default_mesh` resolves a mesh, its
+    budget grown in multiples of the mesh's size."""
+    from jepsen_tpu_torch.parallel import slots
+
+    dev = backend.resolve(device)
+    mesh = slots.default_mesh(h.txn_type.shape[0], device=dev)
+    if mesh is not None:
+        from jepsen_tpu_torch.parallel.op_shard import exact_sharded
+
+        return exact_sharded(h, n_keys, mesh, "batch", max_k, max_rounds,
+                             deadline=deadline)
+    out = infer(to_device(h, dev), n_keys)
     return grow_until_exact(lambda k, r: _verdict(out, k, r), max_k,
                             max_rounds, deadline=deadline)

@@ -25,7 +25,8 @@ outlives its retries, a missing card) is raised as it is.  Only a synthetic
 fault of a `resilience.FaultPlan` degrades to the oracle, stamped
 ``"degraded": "host-fallback"``: the drill that exercises the degradation
 tail.  The phase spans and the staged-bytes counter are the JAX
-package's; its compile cache and multi-device sharding are not carried
+package's, and so is the sharded-by-default sweep over the mesh that
+`parallel.slots.default_mesh` resolves; its compile cache is not carried
 over.
 """
 
@@ -162,6 +163,17 @@ def _check_device(history, consistency_models, anomalies, max_reported,
     # history skip the pad, and a transient retry of infer never pads again
     h = ir.padded("list-append", dev) if ir is not None \
         else pad_packed(p, device=dev)
+    # sharded by default, as in the JAX package: with more than one
+    # visible device and a large enough history (or a forced shard
+    # count), each projection sweep splits its backward-edge axis over
+    # the mesh; inference runs on the mesh's first device
+    from jepsen_tpu_torch.parallel import slots as _slots
+
+    mesh = _slots.default_mesh(h.txn_type.shape[0], device=dev)
+    if mesh is not None:
+        from jepsen_tpu_torch.parallel.op_shard import shard_padded
+
+        h, _ = shard_padded(h, mesh, "batch")
     if telemetry.enabled():
         telemetry.registry().counter("device-bytes-staged").inc(
             sum(a.numel() * a.element_size() for a in (
@@ -241,7 +253,7 @@ def _check_device(history, consistency_models, anomalies, max_reported,
                        chain_starts=chain_starts, chain_mask=cmask)
         res = guarded("elle.cycle-sweep",
                       lambda g=g: detect_cycles(g, deadline=deadline,
-                                                device=dev))
+                                                device=dev, mesh=mesh))
         if not res.converged:
             raise SweepNotConverged(
                 f"cycle sweep of projection {sorted(rels)} did not converge "

@@ -81,13 +81,22 @@ def _reduce_host(balances: np.ndarray, total: int, negative_ok: bool):
 
 def _reduce_device(balances: np.ndarray, total: int, negative_ok: bool,
                    dev: torch.device):
-    """`_reduce_host` as torch reductions on `dev`, int64 throughout."""
-    b = torch.from_numpy(np.ascontiguousarray(balances, np.int64)).to(dev)
-    sums = b.sum(dim=1)
-    wrong = sums != total
-    neg = (b < 0).any(dim=1) if not negative_ok \
-        else torch.zeros(b.shape[0], dtype=torch.bool, device=dev)
-    return sums.cpu().numpy(), wrong.cpu().numpy(), neg.cpu().numpy()
+    """`_reduce_host` as torch reductions on `dev`, int64 throughout.
+    Sharded by default, as in the JAX package: the rows (reads) split
+    over the mesh `parallel.slots.default_mesh` resolves for `dev`
+    (`place_sharded`), each block reduced on its shard's device and the
+    results concatenated in order."""
+    from jepsen_tpu_torch.parallel.slots import place_sharded
+
+    parts = []
+    for b in place_sharded(np.ascontiguousarray(balances, np.int64),
+                           device=dev):
+        sums = b.sum(dim=1)
+        wrong = sums != total
+        neg = (b < 0).any(dim=1) if not negative_ok \
+            else torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
+        parts.append([x.cpu().numpy() for x in (sums, wrong, neg)])
+    return tuple(np.concatenate(col) for col in zip(*parts))
 
 
 def host_verdict(pb: PackedBank, total: int, negative_ok: bool,

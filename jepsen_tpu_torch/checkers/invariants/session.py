@@ -330,7 +330,10 @@ def _viol_masks(seg_id: np.ndarray, is_write: np.ndarray,
     four masks via a 1-based-position cummax ("latest matching event so
     far") plus a segment-start comparison: numpy for ``dev=None`` (the
     host twin), else torch on `dev`.  The encoding stays within the event
-    count, so int32 positions cannot overflow below 2^31 events."""
+    count, so int32 positions cannot overflow below 2^31 events.  Where
+    `parallel.slots.default_mesh` resolves a mesh for these rows, the JAX
+    module shards them over it (`place_sharded`); the port's running max
+    carries across every row, so it runs on the mesh's first device."""
     n = len(seg_id)
     # per-row first index of its own (process, key) segment
     new = np.concatenate([[True], seg_id[1:] != seg_id[:-1]]) \
@@ -360,6 +363,15 @@ def _viol_masks(seg_id: np.ndarray, is_write: np.ndarray,
         return last_prior(False), last_prior(True), w, r
 
     def run_device(dev):
+        # the JAX module places these rows sharded over the default mesh
+        # (`place_sharded`) and lets GSPMD partition the cummax; the
+        # port's running max is one LOCF pass whose carry crosses every
+        # row, so with a mesh it runs on the mesh's first device
+        from jepsen_tpu_torch.parallel.slots import default_mesh
+
+        mesh = default_mesh(n, device=dev)
+        if mesh is not None:
+            dev = torch.device(mesh.devices.flat[0])
         if n >= 2 ** 31:
             raise ValueError(f"{n} session events: the masks' positions "
                              "are int32")

@@ -627,11 +627,15 @@ class FleetWorker:
         claim_to_start_s = time.monotonic() - t_claim
         # mesh capability -> default-mesh shard count: a cell pinning
         # opts["mesh"] — or a worker advertising one — pins its device
-        # checks to exactly that many devices.  Nothing in the port
-        # reads the pin yet (it has no mesh path; see `parallel.slots`).
-        # The pin is THREAD-LOCAL (slots.set_forced_shards): several
-        # workers may share one process, and a process-global env pin
-        # would leak across their concurrently executing cells
+        # checks to exactly that many devices: `parallel.slots.
+        # default_mesh` reads it for every sharded-by-default check
+        # (`core_check_auto`, `core_check_exact`, `list_append.check`,
+        # the bank and session reductions).  On one card, or on the
+        # CPU, the pin leaves the single-device path, as on a one-device
+        # JAX host.  The pin
+        # is THREAD-LOCAL (slots.set_forced_shards): several workers may
+        # share one process, and a process-global env pin would leak
+        # across their concurrently executing cells
         import math
 
         from jepsen_tpu_torch.fleet.queue import _norm_mesh

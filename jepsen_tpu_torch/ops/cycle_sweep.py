@@ -1,6 +1,7 @@
 """Device cycle detection over dependency graphs (PyTorch).
 
-Counterpart of `jepsen_tpu/ops/cycle_sweep.py`, single window:
+Counterpart of `jepsen_tpu/ops/cycle_sweep.py` (its K windows, one a
+shard of a mesh axis, in `_sweep_window(devices=)`):
 
 1. Rank decomposition: edges split into forward (rank increases) and
    backward; forward edges alone form a DAG, so every cycle holds a
@@ -210,7 +211,8 @@ def _fixpoint(n_nodes: int, k: int, max_rounds: int, rank, nc_src, nc_dst,
 def _sweep_window(n_nodes: int, k: int, max_rounds: int,
                   rank, nc_src, nc_dst, nc_mask,
                   chain_nodes, chain_starts, chain_mask,
-                  back_raw=None, back_pre=None, back_tables=None
+                  back_raw=None, back_pre=None, back_tables=None,
+                  devices=None, place=None
                   ) -> Tuple[bool, torch.Tensor, int, bool]:
     """Sweep over the first `k` backward edges.  Returns (has_cycle,
     witness_bits (k,) int8, n_backward, converged); n_backward may
@@ -222,10 +224,26 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
     without them the edges are enumerated here in position order.  When
     the first k hold every backward edge, the fixpoint has converged once
     nothing changes inside the rank windows (`_rank_window`); otherwise
-    the windows are unknown and it runs until nothing changes at all."""
-    if back_pre is not None:
-        is_back, back_id, n_back = back_pre
-    else:
+    the windows are unknown and it runs until nothing changes at all.
+
+    `devices` (the shards of one mesh axis, in order; they may repeat)
+    splits the k columns as the JAX module's sharded window does: shard i
+    sweeps the columns [i k / n, (i + 1) k / n) on its own device
+    (`_window_rows`).  The windows' meta rows are gathered on the first
+    device (`mesh.all_gather_rows`, the JAX ``all_gather``) and closed
+    there once, and the sweep has converged iff every window has (the
+    JAX ``psum`` of the flags).  Columns never read each other, so the
+    result is the same for every split; None is one window on the
+    graph's device.  `place(t, dev)` (a `replica_placer`, new when None)
+    copies an input to a shard's device; a caller that sweeps several
+    times passes one, so that each fixed tensor reaches each device
+    once."""
+    from jepsen_tpu_torch.parallel.mesh import all_gather_rows, psum
+
+    devices = [nc_src.device] if devices is None \
+        else [torch.device(d) for d in devices]
+    assert k % len(devices) == 0, (k, len(devices))
+    if back_pre is None:
         if back_raw is None:
             back_raw = backward_test(rank, nc_src, nc_dst, n_nodes)
         is_back = nc_mask & back_raw
@@ -233,10 +251,12 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
                               torch.cumsum(is_back.to(I32), 0, dtype=I32) - 1,
                               -1)
         n_back = int(torch.sum(is_back.to(I32)))
-    dev = nc_src.device
+    else:
+        is_back, back_id, n_back = back_pre
+    first = devices[0]
     if n_back == 0:
         # forward edges strictly increase rank: a DAG, nothing to propagate
-        return False, torch.zeros(k, dtype=I8, device=dev), 0, True
+        return False, torch.zeros(k, dtype=I8, device=first), 0, True
 
     if back_tables is not None:
         bsrc, bdst = back_tables
@@ -244,21 +264,79 @@ def _sweep_window(n_nodes: int, k: int, max_rounds: int,
         in_k = is_back & (back_id < k)
         bsrc = _endpoint_table(k, back_id, in_k, nc_src)
         bdst = _endpoint_table(k, back_id, in_k, nc_dst)
-    bvalid = torch.arange(k, device=dev) < n_back
     fwd_mask = nc_mask & ~is_back  # forward non-chain edges only
-    limit = _rank_window(rank, bsrc, bdst, bvalid) if n_back <= k else None
-    labels, converged = _fixpoint(n_nodes, k, max_rounds, rank, nc_src,
-                                  nc_dst, fwd_mask, chain_nodes,
-                                  chain_starts, chain_mask, bdst, bvalid,
-                                  limit)
-
-    # meta[e, e2] = dst(e) ->* src(e2), read from labels[src(e2), e];
+    # the caller's tensors through `place`, this sweep's own through a
+    # placer that ends with the call
+    place, own = place or replica_placer(), replica_placer()
+    k_local = k // len(devices)
+    rows, bad = [], []
+    for i, dev in enumerate(devices):
+        r, conv = _window_rows(
+            n_nodes, k, max_rounds, n_back, i * k_local, k_local,
+            *(place(t, dev) for t in (rank, nc_src, nc_dst)),
+            own(fwd_mask, dev),
+            *(place(t, dev) for t in (chain_nodes, chain_starts,
+                                      chain_mask)),
+            own(bsrc, dev), own(bdst, dev))
+        rows.append(r)
+        bad.append(not conv)
     # backward edge e is on a cycle iff its closure's diagonal holds e
+    valid8 = (torch.arange(k, device=first) < n_back).to(I8)
+    meta = all_gather_rows(rows, first)
+    witness = _closure_diagonal(meta.to(_closure_dtype(first))).to(I8) \
+        & valid8
+    return bool(torch.any(witness == 1)), witness, n_back, psum(bad) == 0
+
+
+def _window_rows(n_nodes: int, k: int, max_rounds: int, n_back: int,
+                 k_offset: int, k_local: int, rank, nc_src, nc_dst,
+                 fwd_mask, chain_nodes, chain_starts, chain_mask,
+                 bsrc, bdst) -> Tuple[torch.Tensor, bool]:
+    """One window of `_sweep_window`: the label columns [k_offset,
+    k_offset + k_local) of the k, propagated through the chains and the
+    forward edges `fwd_mask`, each with its own rank window (taken over
+    all k).  Returns (the window's (k_local, k) int8 rows of the meta
+    graph, converged)."""
+    dev = nc_src.device
+    bvalid = torch.arange(k, device=dev) < n_back
+    cols = slice(k_offset, k_offset + k_local)
+    limit = _rank_window(rank, bsrc, bdst, bvalid)[cols] \
+        if n_back <= k else None
+    labels, converged = _fixpoint(n_nodes, k_local, max_rounds, rank,
+                                  nc_src, nc_dst, fwd_mask, chain_nodes,
+                                  chain_starts, chain_mask, bdst[cols],
+                                  bvalid[cols], limit)
+    # meta[e, e2] = dst(e) ->* src(e2), read from labels[src(e2), e]
     valid8 = bvalid.to(I8)
     meta = gather_rows(labels, bsrc, bvalid).T
-    meta = meta & valid8[:, None] & valid8[None, :]
-    witness = _closure_diagonal(meta.to(_closure_dtype(dev))).to(I8) & valid8
-    return bool(torch.any(witness == 1)), witness, n_back, converged
+    return meta & valid8[cols, None] & valid8[None, :], converged
+
+
+def shard_budget(max_k: int, n_shards: int) -> int:
+    """`max_k` rounded up to a multiple of `n_shards`, so that a sweep
+    split over that many shards gives each the same number of columns
+    (a mesh of 3 takes 129 for 128)."""
+    return -(-max_k // n_shards) * n_shards
+
+
+def replica_placer():
+    """A `place(t, dev)` for `_sweep_window` that copies each tensor to
+    each device once: the fixed rank, edge and chain tensors of a check
+    reach every distinct device of a mesh once, whatever the number of
+    projections, retries or shards on that device."""
+    copies: dict = {}
+
+    def place(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        if t.device == dev:
+            return t
+        key = (id(t), dev)
+        if key not in copies:
+            # the source is kept too, so that no id is reused meanwhile
+            copies[key] = (t, t.to(dev))
+        return copies[key][1]
+
+    return place
+
 
 
 def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
@@ -266,10 +344,14 @@ def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
                     inc_stack: Sequence[Sequence[int]],
                     chain_nodes, chain_starts,
                     chain_masks: Sequence[torch.Tensor],
-                    cinc_stack: Sequence[Sequence[int]]
+                    cinc_stack: Sequence[Sequence[int]],
+                    devices=None, place=None
                     ) -> Tuple[bool, int, List[int]]:
     """`_sweep_window` over projections given per-family masks and
-    per-projection family-include flags.
+    per-projection family-include flags.  `devices` and `place` go to
+    every projection's `_sweep_window`: the sharded paths
+    (`parallel/op_shard.py`, `parallel/hybrid.py`) split each
+    projection's columns over a mesh axis that way.
 
     Backward-edge enumeration is hoisted to ONE cumsum over the union of
     the families plus per-family count offsets: families are concatenated
@@ -341,7 +423,8 @@ def projection_scan(n_nodes: int, max_k: int, max_rounds: int,
         has, _, n_back_out, conv = _sweep_window(
             n_nodes, max_k, max_rounds, rank, e_src, e_dst, m,
             chain_nodes, chain_starts, cm,
-            back_pre=(is_back, back_id, n_back), back_tables=(bsrc, bdst))
+            back_pre=(is_back, back_id, n_back), back_tables=(bsrc, bdst),
+            devices=devices, place=place)
         conv_all = conv_all and conv
         overflow = max(overflow, n_back_out - max_k, 0)
         cyc_bits.append(int(has))
@@ -360,8 +443,8 @@ class SweepResult:
 
 
 def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
-                  deadline=None, device: backend.DeviceLike = None
-                  ) -> SweepResult:
+                  deadline=None, device: backend.DeviceLike = None,
+                  mesh=None) -> SweepResult:
     """Run the sweep on `device` (the CUDA card unless the caller names
     the CPU); grow the budget if backward edges exceed max_k or the
     fixpoint needs more rounds, up to the caps.
@@ -372,16 +455,30 @@ def detect_cycles(g: SweepGraph, max_k: int = 128, max_rounds: int = 64,
 
     `deadline` (a `resilience.Deadline`) is polled on entry and before
     each grow retry — the budget-doubling fixpoint is this driver's
-    unbounded loop; expiry raises `DeadlineExceeded`."""
-    dev = backend.resolve(device)
-    arrays = [t.to(dev) for t in (g.rank, g.nc_src, g.nc_dst, g.nc_mask,
-                                  g.chain_nodes, g.chain_starts,
-                                  g.chain_mask)]
+    unbounded loop; expiry raises `DeadlineExceeded`.
+
+    `mesh` (a 1-D `parallel.mesh.Mesh`, as `parallel.slots.default_mesh`
+    resolves it) splits the backward-edge axis over its shards
+    (`_sweep_window`), the budget rounded up to a multiple of their
+    count (`shard_budget`); the graph goes to the mesh's first device.
+    The verdict is the single-device sweep's.  Past `MAX_K_CAP` the
+    components are swept on that first device."""
+    if mesh is not None:
+        assert mesh.devices.ndim == 1, mesh
+        devices = list(mesh.devices)
+    else:
+        devices = [backend.resolve(device)]
+    arrays = [t.to(devices[0]) for t in (
+        g.rank, g.nc_src, g.nc_dst, g.nc_mask, g.chain_nodes,
+        g.chain_starts, g.chain_mask)]
+    place = replica_placer()
     while True:
         if deadline is not None:
             deadline.check("cycle-sweep")
-        has, wit, n_back, conv = _sweep_window(g.n_nodes, max_k, max_rounds,
-                                               *arrays)
+        max_k = shard_budget(max_k, len(devices))
+        has, wit, n_back, conv = _sweep_window(
+            g.n_nodes, max_k, max_rounds, *arrays, devices=devices,
+            place=place)
         if n_back > max_k:
             if n_back > MAX_K_CAP or max_k >= MAX_K_CAP:
                 # past the bit budget: sweep the components of the

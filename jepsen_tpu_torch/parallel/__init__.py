@@ -1,2 +1,4 @@
-"""Batched checking of many histories (the port's copy of the one-card
-part of `jepsen_tpu/parallel`: `batch.py` without its mesh branch)."""
+"""Sharded checking: the mesh of torch devices (`mesh`), batched
+multi-history checking (`batch`), one history's sweep split over a mesh
+(`op_shard`), the 2D batch x sweep mesh (`hybrid`) and the default-mesh
+resolution (`slots`); SURVEY.md §2.7."""

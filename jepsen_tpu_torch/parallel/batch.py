@@ -1,6 +1,7 @@
-"""Batched multi-history checking on one card (the port's copy of
-`jepsen_tpu/parallel/batch.py` without its mesh branch): BASELINE config
-5, a batch of 1M-op histories checked with one verdict per history.
+"""Batched multi-history checking (the port's copy of
+`jepsen_tpu/parallel/batch.py`): BASELINE config 5, a batch of 1M-op
+histories checked with one verdict per history, on one card or split
+over a mesh of devices.
 
 Histories in a batch share padded capacities (pad to the max), and
 `stack_padded` stacks a group's padded columns with a leading batch
@@ -22,11 +23,16 @@ them at one shape), as a vmapped row does in the JAX package, so a row may
 take an `infer` branch its history would not take when checked alone;
 the verdicts are the same.
 
-Not carried over: the mesh branch (`make_mesh`, the `mesh`/`axis`
-arguments, and with them `op_shard`, `hybrid` and `slots`) and the
-compile-cache wrapper (the port compiles nothing per shape).  Telemetric
-runs get the ``parallel.batch`` span and the ``device-bytes-staged``
-counter.  Each batched dispatch runs under
+The mesh branch: `check_batch(ps, mesh=)` splits the batch's rows over
+the mesh's devices in contiguous blocks (`make_mesh`, a `mesh.Mesh`, one
+process driving every device as the JAX package's single controller
+does), each block checked on its own device, and gathers the bits in
+input order.  The JAX package pads the batch with copies of its first
+history so that it divides the mesh; here a block is simply shorter (the
+last blocks of a batch that does not divide), with the same verdicts.
+The compile-cache wrapper is not carried over (the port compiles nothing
+per shape).  Telemetric runs get the ``parallel.batch`` span and the
+``device-bytes-staged`` counter.  Each batched dispatch runs under
 `resilience.device_call("parallel.batch", ...)` as in the JAX package.
 """
 
@@ -57,6 +63,11 @@ from jepsen_tpu_torch.checkers.elle.device_infer import (
     to_device,
 )
 from jepsen_tpu_torch.history.soa import PackedTxns
+from jepsen_tpu_torch.parallel.mesh import Mesh, all_gather_rows
+
+#: `make_mesh`'s shards of ``cpu`` by default (the JAX tests'
+#: ``force_cpu_backend(8)``)
+CPU_SHARDS = 8
 
 #: the columns every padded history has, stacked for every batch
 _BASE_FIELDS = ("txn_type", "txn_process", "txn_invoke_pos",
@@ -67,6 +78,22 @@ _BASE_FIELDS = ("txn_type", "txn_process", "txn_invoke_pos",
 #: at one shape (else `infer` derives the orders in-program)
 _IR_FIELDS = ("run_sort", "inv_run", "key_ord_len", "key_ord_read",
               "proc_order", "barrier_order", "barrier_bi")
+
+
+def make_mesh(n_devices: int = 0, axis: str = "dp",
+              device: backend.DeviceLike = None) -> Mesh:
+    """A 1-D mesh over the first `n_devices` (all when 0) of the card's
+    ``cuda:0`` .. ``cuda:n-1``, or under ``device="cpu"`` over
+    `n_devices` (by default `CPU_SHARDS`) shards of ``cpu``, as the JAX
+    tests run their meshes on 8 virtual host devices.  With no card and
+    no ``device="cpu"`` it raises `backend.NoDeviceError`."""
+    from jepsen_tpu_torch.parallel import slots
+
+    if device is not None and torch.device(device).type == "cpu":
+        return Mesh([torch.device("cpu")] * (n_devices or CPU_SHARDS),
+                    (axis,))
+    backend.resolve(device)   # no card: NoDeviceError
+    return Mesh(slots.all_devices(device)[:n_devices or None], (axis,))
 
 
 def stack_padded(hs: Sequence[PaddedLA]) -> PaddedLA:
@@ -170,11 +197,45 @@ def _batched_core(batch: PaddedLA, n_keys: int):
             torch.stack([o for _, o in rows]))
 
 
+def _rows(batch: PaddedLA, a: int, b: int) -> PaddedLA:
+    """Rows [a, b) of a stacked batch with the batch's static facts: a
+    view of every column, no copy."""
+    return dataclasses.replace(batch, **{
+        f: getattr(batch, f)[a:b] for f in DATA_FIELDS
+        if getattr(batch, f) is not None})
+
+
+def _batched_sharded(batch: PaddedLA, n_keys: int, mesh: Mesh,
+                     axis: str):
+    """The mesh branch: rows in contiguous blocks of ceil(B / n), block i
+    copied from the host straight to the i-th device along `axis` and
+    checked there (`_batched_core`), the bits and overflows gathered on
+    the mesh's first device in input order."""
+    assert mesh.axis_names == (axis,), (mesh.axis_names, axis)
+    devs = [torch.device(d) for d in mesh.devices]
+    first = devs[0]
+    n_rows = batch.txn_type.shape[0]
+    per = -(-n_rows // len(devs))
+    bits, over = [], []
+    for i, dev in enumerate(devs):
+        a, b = i * per, min((i + 1) * per, n_rows)
+        if a >= b:
+            break
+        bi, oi = _batched_core(to_device(_rows(batch, a, b), dev), n_keys)
+        bits.append(bi)
+        over.append(oi)
+    return all_gather_rows(bits, first), all_gather_rows(over, first)
+
+
 def check_batch(ps: Sequence[PackedTxns], caps: tuple = None,
                 deadline=None, plan=None, policy=None,
-                device: backend.DeviceLike = None) -> List[dict]:
+                device: backend.DeviceLike = None, mesh: Mesh = None,
+                axis: str = "dp") -> List[dict]:
     """Check a batch of histories on `device` (the CUDA card unless the
-    caller names the CPU).
+    caller names the CPU), or split over `mesh` along `axis` (the
+    batch's rows in contiguous blocks, padded on the host and copied one
+    block to each device; the verdicts are summarized, and inexact ones
+    re-run, on the mesh's first device).
 
     Returns one summary dict per history: {"valid?", "counts", "cycles",
     "exact"}.  Histories whose sweep overflowed the default
@@ -189,14 +250,25 @@ def check_batch(ps: Sequence[PackedTxns], caps: tuple = None,
     outlives its retries is raised.
     """
     with telemetry.span("parallel.batch", histories=len(ps),
-                        shards=0) as sp:
-        batch = pad_batch(ps, caps, device=device)
+                        shards=(mesh.devices.size if mesh is not None
+                                else 0)) as sp:
+        if mesh is None:
+            batch = pad_batch(ps, caps, device=device)
+            n_keys = batch.n_keys
+            _stage_bytes(sp, batch)
+            bits, over = resilience.device_call(
+                "parallel.batch", lambda: _batched_core(batch, n_keys),
+                deadline=deadline, plan=plan, policy=policy)
+            return summarize_batch_bits(bits, over, batch, n_keys, len(ps))
+        batch = pad_batch(ps, caps, device="cpu")
         n_keys = batch.n_keys
         _stage_bytes(sp, batch)
         bits, over = resilience.device_call(
-            "parallel.batch", lambda: _batched_core(batch, n_keys),
+            "parallel.batch",
+            lambda: _batched_sharded(batch, n_keys, mesh, axis),
             deadline=deadline, plan=plan, policy=policy)
-        return summarize_batch_bits(bits, over, batch, n_keys, len(ps))
+        return summarize_batch_bits(bits, over, batch, n_keys, len(ps),
+                                    device=mesh.devices.flat[0])
 
 
 def _stage_bytes(sp, batch) -> None:
@@ -211,12 +283,13 @@ def _stage_bytes(sp, batch) -> None:
 
 
 def summarize_batch_bits(bits, over, batch, n_keys: int, n_real: int,
-                         k_floor: int = 128) -> List[dict]:
+                         k_floor: int = 128, device=None) -> List[dict]:
     """Per-history summary rows from batched (bits, over) outputs, with
     the exact-rerun fallback: any inexact verdict (backward-edge
     overflow or fixpoint truncation) re-runs that history alone through
-    `core_check_exact`, seeding the budget past the observed overflow so
-    the failed config isn't repeated."""
+    `core_check_exact` on `device` (the batch's device when None),
+    seeding the budget past the observed overflow so the failed config
+    isn't repeated."""
     bits = bits.cpu().numpy().copy()
     over = over.cpu().numpy().copy()
     out: List[dict] = []
@@ -232,8 +305,10 @@ def summarize_batch_bits(bits, over, batch, n_keys: int, n_real: int,
                 and not invalid_by_counts:
             k0 = pow2_at_least(k_floor + int(over[i]), floor=k_floor)
             h_i = _row(batch, i)
-            b2, o2 = core_check_exact(h_i, n_keys, max_k=k0,
-                                      device=h_i.txn_type.device)
+            b2, o2 = core_check_exact(
+                h_i, n_keys, max_k=k0,
+                device=device if device is not None
+                else h_i.txn_type.device)
             row = b2.cpu().numpy()
             over[i] = max(0, int(o2))
             counts = {n: int(row[j]) for j, n in enumerate(COUNT_NAMES)}
@@ -258,12 +333,15 @@ def summarize_batch_bits(bits, over, batch, n_keys: int, n_real: int,
 
 
 def check_batch_checkpointed(ps: Sequence[PackedTxns], ckpt_path: str,
-                             group_size: int = 8, on_group=None,
-                             device: backend.DeviceLike = None
+                             group_size: int = 0, on_group=None,
+                             device: backend.DeviceLike = None,
+                             mesh: Mesh = None, axis: str = "dp"
                              ) -> List[dict]:
     """`check_batch` with chunk-level progress markers.
 
-    The batch is processed in groups of `group_size` histories; after
+    The batch is processed in groups of `group_size` histories (by
+    default one per device of `mesh`, or 8 without one), each group
+    checked on `device` or over `mesh`; after
     each group its verdicts are appended to `ckpt_path` as JSON lines
     {"i": …, "digest": …, "result": …} and fsync'd.  A rerun with the
     same path skips every history already judged, so a crashed control
@@ -302,6 +380,8 @@ def check_batch_checkpointed(ps: Sequence[PackedTxns], ckpt_path: str,
             h.update(np.ascontiguousarray(a).tobytes())
         return h.hexdigest()[:16]
 
+    if not group_size:
+        group_size = mesh.devices.size if mesh is not None else 8
     done: dict = {}
     if os.path.exists(ckpt_path):
         good_bytes = 0
@@ -346,7 +426,7 @@ def check_batch_checkpointed(ps: Sequence[PackedTxns], ckpt_path: str,
                 continue
             t_g = time.monotonic()
             results = check_batch([ps[i] for i in idx], caps=caps,
-                                  device=device)
+                                  device=device, mesh=mesh, axis=axis)
             for i, r in zip(idx, results):
                 out[i] = r
                 f.write(json.dumps(

@@ -939,14 +939,22 @@ def fleet_run(tmp_path_factory):
         t.start()
     try:
         _join(ts, 180)
-        yield base, url, coord, ws
+        # the workers stop once the coordinator reports the campaign
+        # finished, and the worker table and the federated host series
+        # follow their liveness: three leases (15 s here) after their
+        # last heartbeat the series retire.  So the status, metrics and
+        # fleet documents are read as the fleet finishes, not after the
+        # tests in between (the JAX campaign alone takes 12-19 s)
+        seen = {path: _get(url, path)
+                for path in ("/fleet/status", "/metrics", "/fleet")}
+        yield base, url, coord, ws, seen
     finally:
         srv.server_close()
         coord.close()
 
 
 def test_fleet_every_cell_exactly_one_record(fleet_run):
-    base, url, coord, ws = fleet_run
+    base, url, coord, ws, _seen = fleet_run
     idx = TIndex(tccore.index_path("fl", base))
     per_run = {}
     for rec in idx.records:
@@ -969,13 +977,13 @@ def test_fleet_matches_the_jax_campaign(fleet_run, tmp_path):
 
 
 def test_fleet_status_metrics_and_cache_routes(fleet_run):
-    base, url, coord, _ws = fleet_run
-    s = json.loads(_get(url, "/fleet/status"))
+    base, url, coord, _ws, seen = fleet_run
+    s = json.loads(seen["/fleet/status"])
     assert s["finished"] is True and s["done"] == 6
     assert s["counts"]["done"] == 6 and s["counts"]["queued"] == 0
     assert s["digest"] and s["boot-digest"]
     assert set(s["workers"]) == {"w0", "w1"}
-    body = _get(url, "/metrics")
+    body = seen["/metrics"]
     assert "jepsen_fleet_workers_alive" in body
     assert 'jepsen_fleet_cells{state="done"} 6' in body
     assert "jepsen_fleet_leases_active 0" in body
@@ -986,7 +994,7 @@ def test_fleet_status_metrics_and_cache_routes(fleet_run):
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(url, path)
         assert e.value.code == 404, path
-    page = _get(url, "/fleet")
+    page = seen["/fleet"]
     assert "fleet — fl" in page and "w0" in page and "w1" in page
     # the index page links the fleet dashboard and the campaigns
     index = _get(url, "/")

@@ -263,7 +263,7 @@ def test_real_device_error_is_raised_not_degraded(monkeypatch, exc):
 def test_unconverged_sweep_raises_not_degraded(monkeypatch):
     from jepsen_tpu_torch.ops.cycle_sweep import SweepResult
 
-    def stuck(g, deadline=None, device=None):
+    def stuck(g, deadline=None, device=None, mesh=None):
         return SweepResult(has_cycle=False, witness_edge_ids=np.zeros(0),
                            n_backward=9000, converged=False)
 

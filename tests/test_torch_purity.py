@@ -1,7 +1,8 @@
 """The port's purity: importing every module of `jepsen_tpu_torch` and
 running a check (`core_check_exact`, `list_append.check`, `oracle.check`,
 `rw_register.check`, Knossos, the native `wgl.check`, `session.check`,
-the queue checks, `stream.check_stored`, `batch.check_batch`, a
+the queue checks, `stream.check_stored`, `batch.check_batch`,
+`op_shard.check_sharded` on a 3-shard mesh, `hybrid.check_batch_hybrid`, a
 telemetric, live-checked `core.run` of the `append` demo, and the CLI's
 `shrink` of a bank run and `campaign run` of bank, kafka and noop cells
 with auto-shrink, then `obs ingest` and `obs alerts --eval` of that
@@ -117,6 +118,11 @@ assert r["valid?"] is False and r["cycles"]["G1c"], r
 ps = [packed_la_history(48, n_keys=4, seed=s) for s in range(3)]
 rs = batch.check_batch(ps + [pack_txns(sh)], device="cpu")
 assert [x["valid?"] for x in rs] == [True, True, True, False], rs
+from jepsen_tpu_torch.parallel import hybrid, op_shard
+r = op_shard.check_sharded(p, mesh=batch.make_mesh(3, device="cpu"))
+assert r["valid?"] is False and r["inference-sharded"] is False, r
+assert hybrid.check_batch_hybrid(
+    ps, hybrid.make_hybrid_mesh(2, 2, ["cpu"] * 4)) == rs[:3]
 from jepsen_tpu_torch import core
 from jepsen_tpu_torch.__main__ import DEMOS
 from jepsen_tpu_torch.generator import core as gen
